@@ -10,7 +10,8 @@ exits non-zero without the final line:
   2. build   — nvcc for every ``src/repro_torch/kernels/csrc/*.cu``, all
                started together, with ptxas registers / shared memory;
   3. kernels — each kernel against its plain PyTorch version on the card,
-               with its time, the plain version's and a library yardstick's;
+               with its time, the plain version's and a library yardstick's
+               (the preprocess kernel bit for bit);
   4. small   — a smoke-width model on the card against the same model on
                the CPU (plain versions) at a prompt that takes the flash path;
   5. main    — qwen3-1.7b at full width (random weights from a seed) through
@@ -18,7 +19,22 @@ exits non-zero without the final line:
                warm (attach, no prefill) through a KV-cache store on an
                OffloadFS volume behind 4 storage engines, and in memory;
                tokens must agree, every fetched cache must equal the
-               prefill's bit for bit, and the path must launch both kernels.
+               prefill's bit for bit, and the path must launch both kernels;
+  6. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
+               synthetic corpus (sides 64-512) on a volume behind one
+               storage engine: a third of each 256-image minibatch
+               preprocessed by the engine's numpy stub, the rest on the card
+               by the preprocess kernel; every batch bit for bit equal to a
+               host numpy golden, before and after a checkpoint into
+               OffloadDB, a remount and a resume;
+  7. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
+               keys of fig21's shape, a ~10 % filter: the pushdown scan,
+               merged on the card by the merge kernel, equals the local
+               scan, and each of its merges equals the plain merge bit for
+               bit. fig21's keys all tie on their 4-byte prefix, so the
+               merge there orders nothing: streams of the scan's lengths
+               with distinct prefixes go through ``merge_row_streams`` on
+               the card against a plain host merge.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -36,14 +52,21 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them,
-# HBM bandwidth
+# f64 outside them, HBM bandwidth
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 PEAK_BYTES = 3.35e12
 
 # main-path shape: qwen3-1.7b at full width, two 4,096-token prompts
 BATCH, PROMPT, STEPS = 2, 4096, 16
 MAX_LEN = PROMPT + STEPS
+
+# prep path: OffloadPrep's defaults (out 224, a third offloaded) on the
+# corpus's own size distribution, 4 minibatches of 256
+PREP_IMAGES, PREP_BATCH, PREP_OUT, PREP_SEED = 1024, 256, 224, 5
+# pushdown path: fig21's corpus shape (240-byte values) at 200,000 keys
+PUSHDOWN_KEYS = 200_000
 
 
 def emit(phase: str, **kw) -> None:
@@ -56,14 +79,23 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` warm calls."""
+    """Mean device time of ``fn`` in ms over ``iters`` warm calls. A spin
+    kernel holds the card while the host enqueues the calls, twice as long
+    as one call took end to end times ``iters``, so that the host's own
+    time between launches (a Python wrapper's checks, a small kernel's
+    launch) is not counted as the card's."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_s = min(2.0 * iters * (time.perf_counter() - t0), 2.0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_s * 2e9))  # cycles, at up to 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -121,7 +153,7 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(["flash_attention", "merge"])
+    build.build(["flash_attention", "merge", "preprocess"])
     emit("build", seconds=time.perf_counter() - t0, kernels=build.BUILD_LOG)
 
 
@@ -261,6 +293,83 @@ def time_merge_at_path(nchunks: int, nruns: int):
             "library_ms": time_ms(lambda: fold(merge_library), iters),
             "bound_ms": b_ms, "bound_by": by,
             "shape": {"chunks": nchunks, "runs": nruns, "merged_elems": n_elems}}
+
+
+def prep_library(img_chw, flip, mean, std):
+    """The preprocess kernel's library yardstick (never called by the
+    port): ``F.interpolate`` bilinear in f64, ``torch.flip``, normalise."""
+    import torch
+    import torch.nn.functional as F
+
+    x = F.interpolate(img_chw[None].double(), size=(PREP_OUT, PREP_OUT), mode="bilinear",
+                      align_corners=False)[0]
+    if flip:
+        x = torch.flip(x, dims=(-1,))
+    return (x - mean[:, None, None]) / std[:, None, None]
+
+
+def prep_work(img_chw):
+    """(FLOP, bytes) of one preprocess call: 13 f64 operations per output
+    element (the two-tap blends, their weights' complements, the
+    normalisation) plus 5 per output row and column (source coordinates);
+    the crop read once, the f64 output written once."""
+    C = img_chw.shape[0]
+    flops = 13.0 * C * PREP_OUT * PREP_OUT + 5.0 * 2 * PREP_OUT
+    nbytes = img_chw.numel() * img_chw.element_size() + C * PREP_OUT * PREP_OUT * 8
+    return flops, nbytes
+
+
+def phase_kernels_preprocess():
+    """The preprocess kernel against its plain version on the card, bit for
+    bit: a count of differing elements (must be 0) and the max abs error."""
+    import torch
+
+    from repro_torch.kernels import preprocess as kpp
+    from repro_torch.kernels import ref
+
+    g = torch.Generator("cuda").manual_seed(11)
+
+    def crop(h, w):  # an HWC uint8 crop seen as CHW, as the prep path hands it
+        return torch.randint(0, 256, (h, w, 3), generator=g, device="cuda",
+                             dtype=torch.uint8).permute(2, 0, 1)
+
+    slots = torch.zeros((2, PREP_OUT, PREP_OUT, 3), dtype=torch.float64, device="cuda")
+    cases = [  # name, CHW input, flip, out
+        ("crop512_flip", crop(512, 512), True, None),
+        ("upscale61x77", crop(61, 77), False, None),
+        ("pixel1x1", crop(1, 1), True, None),
+        ("f32_chw", torch.rand((3, 300, 417), generator=g, device="cuda") * 255, True, None),
+        ("slot_view", crop(200, 300), True, slots[1].permute(2, 0, 1)),
+    ]
+    mean = ref.PREP_MEAN.to("cuda", torch.float64)
+    std = ref.PREP_STD.to("cuda", torch.float64)
+    results = {}
+    for name, img, flip, out in cases:
+        got = kpp.preprocess_image(img, out_size=PREP_OUT, flip=flip, out=out)
+        want = ref.preprocess_image_ref(img, out_size=PREP_OUT, flip=flip)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == torch.float64,
+              f"preprocess {name}: {tuple(got.shape)} {got.dtype}")
+        differing = int((got.view(torch.int64) != want.view(torch.int64)).sum().item())
+        err = (got - want).abs().max().item()
+        check(differing == 0, f"preprocess {name}: {differing} elements differ from the "
+                              f"plain version (max abs error {err})")
+        if out is not None:
+            check(got.data_ptr() == slots[1].data_ptr() and not slots[0].any().item(),
+                  "preprocess slot_view: wrote outside its slot")
+        flops, nbytes = prep_work(img)
+        b_ms, by = bound(flops, nbytes, PEAK_F64)
+        results[name] = {
+            "shape": list(img.shape), "dtype": str(img.dtype), "flip": flip,
+            "differing_elements": differing, "max_abs_err": err,
+            "ms": time_ms(lambda: kpp.preprocess_image(img, out_size=PREP_OUT, flip=flip,
+                                                       out=out), 50),
+            "plain_ms": time_ms(lambda: ref.preprocess_image_ref(img, out_size=PREP_OUT,
+                                                                 flip=flip), 10),
+            "library_ms": time_ms(lambda: prep_library(img, flip, mean, std), 50),
+            "bound_ms": b_ms, "bound_by": by, "flops": flops, "bytes": nbytes}
+    emit("kernels_preprocess", cases=results)
+    return results["crop512_flip"]
 
 
 # ------------------------------------------------------------ phase 4
@@ -458,6 +567,305 @@ def phase_main():
     return launches, entry.nchunks, runs_per_fetch
 
 
+# ------------------------------------------------------------ phase 6
+def _prep_plane(dev=None):
+    """A volume of 2^17 blocks behind one storage engine that serves
+    ``stub_preprocess`` (and OffloadDB's stubs); with ``dev`` it remounts
+    that device, as a restarted trainer would."""
+    from repro_torch.core import (AcceptAll, BlockDevice, OffloadEngine, OffloadFS,
+                                  RpcFabric, TaskOffloader, serve_engine)
+    from repro_torch.core.lsm import compaction as C
+    from repro_torch.data.offload_prep import stub_preprocess
+
+    mount = dev is not None
+    dev = dev or BlockDevice(num_blocks=1 << 17)
+    fs = OffloadFS.mount(dev, node="init0") if mount else OffloadFS(dev, node="init0")
+    fabric = RpcFabric()
+    eng = OffloadEngine(fs, node="storage0")
+    eng.register_stub("preprocess", stub_preprocess)
+    eng.register_stub("compact", C.stub_compact)
+    eng.register_stub("log_recycle", C.stub_log_recycle)
+    serve_engine(eng, fabric, AcceptAll())
+    off = TaskOffloader(fs, fabric, node="init0", targets=[eng.node])
+    return dev, fs, fabric, off
+
+
+class _PrepTimes:
+    """Per-minibatch host times inside the producer thread, with no
+    synchronise, through OffloadPrep's public calls: the local share
+    (``local_images``: reads, host decode and crop, copies, kernel
+    launches; ``scripts/profile_prep.py`` has the device's view), then the
+    wait on the remote share up to its copy into the batch
+    (``fill_share``)."""
+
+    def __init__(self, prep):
+        self.batches = []
+        local, fill = prep.local_images, prep.fill_share
+
+        def local_images(*a, **kw):
+            t0 = time.perf_counter()
+            out = local(*a, **kw)
+            self.t_local = time.perf_counter()
+            self.batches.append({"local_ms": (self.t_local - t0) * 1e3,
+                                 "remote_wait_ms": 0.0})
+            return out
+
+        def fill_share(*a, **kw):
+            out = fill(*a, **kw)
+            self.batches[-1]["remote_wait_ms"] = (time.perf_counter() - self.t_local) * 1e3
+            return out
+
+        prep.local_images, prep.fill_share = local_images, fill_share
+
+
+def phase_prep():
+    """OffloadPrep on the training host through ``PrepPipeline``: the local
+    two thirds of every minibatch on the card, the rest on the storage
+    engine's numpy stub; bit for bit equal to a host numpy golden, before
+    and after a checkpoint into OffloadDB, a remount and a resume."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lsm import DBConfig, OffloadDB
+    from repro_torch.data import OffloadPrep, PrepPipeline
+    from repro_torch.data.preprocess import preprocess_image
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kvmerge
+    from repro_torch.kernels import preprocess as kpp
+
+    def new_prep(fs, off):
+        return OffloadPrep(fs, off, out_size=PREP_OUT, offload_ratio=1 / 3)
+
+    def new_pipe(prep, paths):
+        return PrepPipeline(prep, paths, batch=PREP_BATCH, epochs=1, seed=PREP_SEED, window=2,
+                            queue_depth=2)
+
+    t0 = time.perf_counter()
+    dev, fs, fabric, off = _prep_plane()
+    prep = new_prep(fs, off)
+    paths = prep.materialize_corpus(PREP_IMAGES, max_side=512)
+    corpus_s = time.perf_counter() - t0
+    corpus_bytes = sum(fs.stat(p).size for p in paths)
+
+    # the golden: every image through the storage node's numpy path, at the
+    # pipeline's per-image seeds; where a share runs must not change a bit
+    t0 = time.perf_counter()
+    ref_pipe = new_pipe(prep, paths)
+    order = ref_pipe._epoch_order(0)
+    n_batches = ref_pipe.batches_per_epoch
+    golden = []
+    for b in range(n_batches):
+        bseed = ref_pipe._batch_seed(0, b)
+        golden.append(np.stack([
+            preprocess_image(fs.read(paths[int(order[b * PREP_BATCH + i])]),
+                             prep._image_seed(bseed, i), PREP_OUT)
+            for i in range(PREP_BATCH)]))
+    golden_s = time.perf_counter() - t0
+    remote, local_ids = prep.plan_shares(PREP_BATCH)
+
+    # the path, uninterrupted, with every count at 0 just before it
+    pipe = new_pipe(prep, paths)
+    times = _PrepTimes(prep)
+    fa.LAUNCHES = kvmerge.LAUNCHES = kpp.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got, arrivals = [], []
+    for x in pipe:
+        got.append(x)
+        arrivals.append((time.perf_counter() - t0) * 1e3)
+    wall_s = time.perf_counter() - t0
+    launches = {"preprocess": kpp.LAUNCHES, "flash_attention": fa.LAUNCHES,
+                "merge": kvmerge.LAUNCHES}
+    stats = dict(prep.stats)
+
+    check(len(got) == n_batches, f"the pipeline delivered {len(got)} of {n_batches} batches")
+    differing = []
+    for x, want in zip(got, golden):
+        check(x.is_cuda and x.dtype == torch.float64
+              and tuple(x.shape) == want.shape, f"a batch is {x.device} {x.dtype} {x.shape}")
+        differing.append(int((x.cpu().numpy().view(np.int64) != want.view(np.int64)).sum()))
+    check(all(d == 0 for d in differing),
+          f"batches differ from the host numpy golden in {differing} elements")
+    n_local = n_batches * len(local_ids)
+    check(launches["preprocess"] == n_local > 0,
+          f"preprocess launched {launches['preprocess']} times for {n_local} local images")
+    planned = {"local": n_local, "offloaded": n_batches * sum(len(i) for _, i in remote),
+               "rejected": 0, "rerouted": 0}
+    check(stats == planned, f"prep.stats {stats}, planned {planned}")
+
+    # checkpoint after two batches into OffloadDB on the same volume, crash,
+    # remount, recover, resume: the rest equals the uninterrupted run
+    db = OffloadDB(fs, off, DBConfig(memtable_bytes=1 << 16))
+    pipe = new_pipe(new_prep(fs, off), paths)
+    it = iter(pipe)
+    resumed = [next(it) for _ in range(2)]
+    blob = pipe.checkpoint(db)
+    pipe.close()
+    db.flush_all()
+    fs.flush_metadata()
+    fabric.drain()
+    _, fs2, _, off2 = _prep_plane(dev)
+    db2 = OffloadDB.recover(fs2, off2)
+    pipe2 = PrepPipeline.resume(new_prep(fs2, off2), paths, db2)
+    check(pipe2.state.cursor == 2 and pipe2.state.epoch == 0,
+          f"resumed at epoch {pipe2.state.epoch} cursor {pipe2.state.cursor}")
+    resumed.extend(pipe2)
+    check(len(resumed) == n_batches
+          and all(torch.equal(_bits(a), _bits(b)) for a, b in zip(resumed, got)),
+          "the resumed run differs from the uninterrupted run")
+
+    per_batch = times.batches
+    emit("prep", images=PREP_IMAGES, batch=PREP_BATCH, out_size=PREP_OUT, batches=n_batches,
+         local_per_batch=len(local_ids), remote_per_batch=[len(i) for _, i in remote],
+         corpus_bytes=corpus_bytes, corpus_s=corpus_s, golden_s=golden_s,
+         wall_s=wall_s, images_per_s=PREP_IMAGES / wall_s, batch_arrival_ms=arrivals,
+         per_batch=per_batch, launches=launches, stats=stats,
+         golden_differing_elements=differing, checkpoint=json.loads(blob),
+         resumed_bit_equal=True)
+    return launches
+
+
+# ------------------------------------------------------------ phase 7
+class _MergeRecord:
+    """While in use, records the runs and the result of every
+    ``ops.merge_sorted`` call; the call itself is the path's, so the
+    kernel's count is untouched. ``hold`` then compares each result with
+    the stable plain merge of the same runs, bit for bit."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.calls, self._ops, merge = [], ops, ops.merge_sorted
+
+        def recorded(*runs):
+            out = merge(*runs)
+            self.calls.append((runs, out))
+            return out
+
+        self._merge, ops.merge_sorted = merge, recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.merge_sorted = self._merge
+
+    def leaves(self):
+        """The lengths of the streams that the fold started from: the runs
+        that were not the result of an earlier merge."""
+        made = {id(t) for _, out in self.calls for t in out}
+        return [len(runs[i]) for runs, _ in self.calls for i in (0, 2)
+                if id(runs[i]) not in made]
+
+    def hold(self, what: str) -> dict:
+        from repro_torch.kernels import ref
+
+        for n, (runs, out) in enumerate(self.calls):
+            merge_errors(out, ref.merge_sorted_ref(*runs), f"{what}: merge {n}")
+        return {"merges_held": len(self.calls),
+                "runs": [[len(runs[0]), len(runs[2])] for runs, _ in self.calls],
+                "distinct_keys": [int(out[0].unique().numel()) for _, out in self.calls]}
+
+
+def _distinct_prefix_streams(lengths, seed):
+    """Row streams of the given lengths, as the engines return them (sorted,
+    unique keys in each, lower rank newer): keys whose first 4 bytes are
+    distinct random values, a quarter of them in two streams at different
+    ranks, so that the merge of 4-byte prefixes alone decides the order."""
+    import random
+
+    rng = random.Random(seed)
+    pool = rng.sample(range(0xFFFFFFFE), int(sum(lengths) * 0.8) + 1)
+    streams = []
+    for s, n in enumerate(lengths):
+        ids = sorted(rng.sample(pool, min(n, len(pool))))
+        streams.append([(i.to_bytes(4, "big") + b"#row", s, rng.randbytes(8)) for i in ids])
+    return streams
+
+
+def phase_pushdown():
+    """OffloadDB's pushdown scan at fig21's corpus shape on a 4-stripe
+    volume behind 4 engines (``tests/pushdown_util.py``'s plane): rows
+    equal the local scan's, the per-stripe streams merge on the card, and
+    each of the scan's merges equals the plain merge bit for bit. fig21's
+    keys all share the prefix ``user``, so there the merge orders nothing;
+    streams of the same lengths with distinct prefixes then go through
+    ``merge_row_streams`` on the card against a plain host merge."""
+    import random
+
+    from repro_torch.core import (AcceptAll, BlockDevice, OffloadEngine, OffloadFS,
+                                  RpcFabric, TaskOffloader, serve_engine)
+    from repro_torch.core import pushdown as P
+    from repro_torch.core.lsm import DBConfig, OffloadDB
+    from repro_torch.core.lsm import compaction as C
+    from repro_torch.kernels import kvmerge
+
+    fs = OffloadFS(BlockDevice(num_blocks=1 << 17), node="init0", shards=4)
+    fabric = RpcFabric()
+    for t in range(4):
+        eng = OffloadEngine(fs, node=f"storage{t}")
+        eng.register_stub("compact", C.stub_compact)
+        eng.register_stub("log_recycle", C.stub_log_recycle)
+        P.register_pushdown_stub(eng)
+        serve_engine(eng, fabric, AcceptAll())
+    off = TaskOffloader(fs, fabric, node="init0", targets=[f"storage{t}" for t in range(4)],
+                        lb_policy="placement_affinity")
+    db = OffloadDB(fs, off, DBConfig(memtable_bytes=1 << 20, log_recycling=False,
+                                     l0_cache=False, l0_trigger=999))
+
+    # benchmarks/fig21_pushdown.py's load_corpus: keys in random order, a
+    # one-byte tag (A 1 %, B 9 %, C 30 %, D 60 %) and 240 bytes of value
+    t0 = time.perf_counter()
+    rng = random.Random(21)
+    pad = bytes(240)
+    tag_p = ((b"A", 0.01), (b"B", 0.09), (b"C", 0.40), (b"D", 1.00))
+    for i in rng.sample(range(PUSHDOWN_KEYS), PUSHDOWN_KEYS):
+        r = rng.random()
+        db.put(f"user{i:08d}".encode(), next(t for t, p in tag_p if r < p) + pad)
+    db.flush_all()
+    load_s = time.perf_counter() - t0
+
+    prog = P.build_scan(b"user", b"userz", where=P.or_(P.prefix(P.value(), b"A"),
+                                                       P.prefix(P.value(), b"B")))
+    t0 = time.perf_counter()
+    rows_local = db.scan(program=prog, pushdown=False)
+    local_s = time.perf_counter() - t0
+    kvmerge.LAUNCHES = 0
+    fabric.drain()
+    b0 = fabric.total_bytes()
+    with _MergeRecord() as scan_merges:
+        t0 = time.perf_counter()
+        rows_push = db.scan(program=prog, pushdown=True)
+        push_s = time.perf_counter() - t0
+    launches = kvmerge.LAUNCHES
+    fabric.drain()
+    wire = fabric.total_bytes() - b0
+    check(rows_push == rows_local, f"pushdown rows ({len(rows_push)}) differ from the "
+                                   f"local scan's ({len(rows_local)})")
+    check(launches > 0, "the pushdown scan never launched the merge kernel")
+    check(len(scan_merges.calls) == launches,
+          f"{len(scan_merges.calls)} merges recorded for {launches} launches")
+    held_scan = scan_merges.hold("pushdown scan")
+    check(not fs._leases, "the scans leaked a lease")
+
+    # the same fold at the scan's stream lengths, with distinct prefixes
+    lengths = scan_merges.leaves()
+    streams = _distinct_prefix_streams(lengths, seed=22)
+    want = []
+    for r in sorted((r for s in streams for r in s), key=lambda r: (r[0], r[1])):
+        if not want or want[-1][0] != r[0]:
+            want.append(r)
+    with _MergeRecord() as distinct_merges:
+        got = P.merge_row_streams(streams, "cuda")
+    check(got == want, "merge_row_streams on distinct prefixes differs from the plain "
+                       "host merge")
+    held_distinct = distinct_merges.hold("distinct prefixes")
+    emit("pushdown", keys=PUSHDOWN_KEYS, value_bytes=241, tables=len(db.tables), stripes=4,
+         rows=len(rows_push), selectivity=len(rows_push) / PUSHDOWN_KEYS, load_s=load_s,
+         local_scan_s=local_s, pushdown_scan_s=push_s, pushdown_wire_bytes=wire,
+         merge_launches=launches, rows_equal=True, scan_merges=held_scan,
+         distinct_prefix_merge={"stream_lengths": lengths, "rows_out": len(got),
+                                "rows_equal": True, **held_distinct})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -468,9 +876,13 @@ def main() -> int:
     info = phase_device()
     phase_build()
     fa_rec = phase_kernels()
+    pp_rec = phase_kernels_preprocess()
     phase_small()
     launches, nchunks, nruns = phase_main()
     mg_rec = time_merge_at_path(nchunks, nruns)
+    emit("merge_at_path", **mg_rec)
+    prep_launches = phase_prep()
+    pushdown_launches = phase_pushdown()
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -484,10 +896,17 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvmerge.py:24",
          "launches": launches["merge"], "max_abs_err": mg_rec["max_abs_err"],
          "payload_mismatches": mg_rec["payload_mismatches"],
+         "launches_by_path": {"serve": launches["merge"], "pushdown": pushdown_launches},
          "ms": mg_rec["ms"], "plain_ms": mg_rec["plain_ms"], "bound_ms": mg_rec["bound_ms"],
          "bound_by": mg_rec["bound_by"], "library_ms": mg_rec["library_ms"]},
+        {"name": "preprocess", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/preprocess.cu",
+         "replaces": "src/repro/kernels/preprocess.py:41",
+         "launches": prep_launches["preprocess"], "max_abs_err": pp_rec["max_abs_err"],
+         "differing_elements": pp_rec["differing_elements"],
+         "ms": pp_rec["ms"], "plain_ms": pp_rec["plain_ms"], "bound_ms": pp_rec["bound_ms"],
+         "bound_by": pp_rec["bound_by"], "library_ms": pp_rec["library_ms"]},
     ]
-    emit("merge_at_path", **mg_rec)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

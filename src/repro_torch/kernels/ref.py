@@ -2,8 +2,8 @@
 
 The CPU tests run these, and ``chip_smoke.py`` holds each CUDA kernel
 against its plain version on the card. They repeat the kernels' arithmetic
-in the most direct form (materialised scores, a stable sort) and are no
-yardstick of speed.
+in the most direct form (materialised scores, a stable sort, a gather) and
+are no yardstick of speed.
 """
 from __future__ import annotations
 
@@ -71,3 +71,49 @@ def merge_sorted_ref(a_keys, a_vals, b_keys, b_vals):
     sort_keys = keys.to(torch.int64) if keys.dtype == torch.uint32 else keys
     order = torch.argsort(sort_keys, stable=True)
     return keys[order], vals[order]
+
+
+# The prep path's normalisation constants, float32 as numpy holds them
+# (``data/preprocess.py``: float32 array times 255.0 stays float32).
+PREP_MEAN = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float32) * 255.0
+PREP_STD = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float32) * 255.0
+
+
+def _bilinear_axis(n: int, out: int, device):
+    """Source indices and weight along one axis, as ``bilinear_resize``
+    computes them: s = ((o + 0.5) * n) / out - 0.5, i0 = clip(floor(s)),
+    i1 = clip(i0 + 1), w = clip(s - i0, 0, 1) with the clamped i0. The
+    divisor is a tensor on ``device``: CUDA divides by a host scalar as a
+    multiplication by its reciprocal, which rounds differently."""
+    s = (torch.arange(out, dtype=torch.float64, device=device) + 0.5) * n
+    s = s / torch.full((), out, dtype=torch.float64, device=device) - 0.5
+    i0 = torch.floor(s).to(torch.int64).clamp(0, n - 1)
+    i1 = (i0 + 1).clamp(max=n - 1)
+    w = (s - i0.to(torch.float64)).clamp(0.0, 1.0)
+    return i0, i1, w
+
+
+def preprocess_image_ref(img_chw, *, out_size=224, flip=False, mean=None, std=None):
+    """Bilinear resize (align_corners=False) of the crop ``img_chw`` (C,H,W)
+    u8 or f32, flipped left-right if ``flip``, then (x - mean) / std per
+    channel → (C, out, out) float64. The numpy storage-node path
+    (``bilinear_resize`` then the normalisation) in the same float64
+    elementwise operations in the same order, with no matmul, so that it
+    gives the same bits."""
+    C, h, w = img_chw.shape
+    dev = img_chw.device
+    mean = PREP_MEAN if mean is None else mean
+    std = PREP_STD if std is None else std
+    f = img_chw.to(torch.float32).to(torch.float64)  # u8 -> f32 -> f64, exact
+    if flip:
+        f = f.flip(-1)
+    y0, y1, wy = _bilinear_axis(h, out_size, dev)
+    x0, x1, wx = _bilinear_axis(w, out_size, dev)
+    wy, wx = wy[:, None], wx[None, :]
+    rows0, rows1 = f[:, y0], f[:, y1]
+    top = rows0[:, :, x0] * (1.0 - wx) + rows0[:, :, x1] * wx
+    bot = rows1[:, :, x0] * (1.0 - wx) + rows1[:, :, x1] * wx
+    r = top * (1.0 - wy) + bot * wy
+    m = torch.as_tensor(mean, dtype=torch.float32).to(dev, torch.float64)
+    sd = torch.as_tensor(std, dtype=torch.float32).to(dev, torch.float64)
+    return (r - m[:, None, None]) / sd[:, None, None]
