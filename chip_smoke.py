@@ -11,7 +11,10 @@ exits non-zero without the final line:
                started together, with ptxas registers / shared memory;
   3. kernels — each kernel against its plain PyTorch version on the card,
                with its time, the plain version's and a library yardstick's
-               (the preprocess kernel bit for bit);
+               (the preprocess kernel bit for bit); flash at the prefill
+               shape, at S = 2,049 (the first length on the flash path) and
+               8,192, non-causal, softcapped, ragged and in f32, each with
+               its time over SDPA's;
   4. small   — a smoke-width model on the card against the same model on
                the CPU (plain versions) at a prompt that takes the flash path;
   5. main    — qwen3-1.7b at full width (random weights from a seed) through
@@ -193,6 +196,10 @@ def phase_kernels():
         ("softcap_f32", 1, 256, 2, 4, 128, torch.float32, True, 30.0),
         ("ragged_bf16", 2, 1000, 2, 4, 64, torch.bfloat16, True, 0.0),
         ("noncausal_f32", 1, 333, 1, 2, 128, torch.float32, False, 0.0),
+        ("s2049_bf16", BATCH, 2049, 8, 2, 128, torch.bfloat16, True, 0.0),
+        ("s8192_bf16", 1, 8192, 8, 2, 128, torch.bfloat16, True, 0.0),
+        ("noncausal_bf16", 1, 1500, 8, 2, 128, torch.bfloat16, False, 0.0),
+        ("softcap_bf16", 1, 1024, 2, 4, 128, torch.bfloat16, True, 30.0),
     ]
 
     def flash_case(name, B, S, KV, G, D, dt, causal, cap):
@@ -218,11 +225,14 @@ def phase_kernels():
             rec["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                        enable_gqa=True), 10)
+        rec["ms_over_library"] = rec["ms"] / rec["library_ms"] if rec["library_ms"] else None
         flops, nbytes = _flash_work(q, k, causal)
         peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peak)
         rec["flops"], rec["bytes"] = flops, nbytes
         results[name] = rec
+        del q, k, v, out
+        torch.cuda.empty_cache()
 
     for case in cases:
         flash_case(*case)
@@ -890,7 +900,8 @@ def main() -> int:
          "launches": launches["flash_attention"], "max_abs_err": fa_rec["max_abs_err"],
          "rel_err": fa_rec["rel_err"], "row_rel_err": fa_rec["row_rel_err"],
          "ms": fa_rec["ms"], "plain_ms": fa_rec["plain_ms"], "bound_ms": fa_rec["bound_ms"],
-         "bound_by": fa_rec["bound_by"], "library_ms": fa_rec["library_ms"]},
+         "bound_by": fa_rec["bound_by"], "library_ms": fa_rec["library_ms"],
+         "ms_over_library": fa_rec["ms_over_library"]},
         {"name": "merge", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/merge.cu",
          "replaces": "src/repro/kernels/kvmerge.py:24",

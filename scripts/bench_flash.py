@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""The bf16 flash-attention kernel against other builds of it, built,
+checked and timed on one GPU.
+
+    python3 scripts/bench_flash.py [--also LABEL=PATH[:FLAGS]] [--iters N]
+
+It compiles ``csrc/flash_attention.cu`` and every ``--also`` source (an
+earlier commit's ``flash_attention.cu``, say, with extra ``nvcc`` flags
+after a colon, comma-separated) with ``nvcc``, all started together, and
+prints what ptxas said (registers, spills, stack frames, warnings). Then,
+in one child process per build (so that a hung kernel is killed at a time
+limit), it holds each against the plain version on the cases below
+(``ref.flash_attention_check``), and last times every build that passed,
+in turns (A B C C B A), at the prefill shape (qwen3-1.7b: B 2, S 4,096,
+8 kv heads × 2, D 128, causal) and at S 8,192, beside
+``F.scaled_dot_product_attention`` with ``enable_gqa``. One JSON line per
+phase; the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+# name, B, Sq, Sk, KV, G, D, causal, softcap
+CASES = [
+    ("prefill", 2, 4096, 4096, 8, 2, 128, True, 0.0),
+    ("s2049", 1, 2049, 2049, 8, 2, 128, True, 0.0),
+    ("ragged_d64", 2, 1000, 1000, 2, 4, 64, True, 0.0),
+    ("noncausal_d64", 1, 77, 77, 2, 1, 64, False, 0.0),
+    ("noncausal_g8", 1, 333, 333, 1, 8, 128, False, 0.0),
+    ("softcap", 1, 256, 256, 2, 4, 128, True, 30.0),
+    ("sq37_sk150", 2, 37, 150, 2, 2, 64, True, 0.0),
+    ("sq150_sk37", 2, 150, 37, 2, 2, 128, True, 0.0),
+    ("g1_kv1", 1, 300, 300, 1, 1, 128, True, 0.0),
+]
+TIMED = [("prefill", 2, 4096, 8, 2, 128), ("s8192", 1, 8192, 8, 2, 128)]
+
+
+def emit(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def build_all(also):
+    """Compile the kept source and every ``also`` build at once; returns
+    {label: .so}."""
+    from repro_torch.kernels import build
+
+    out_dir = build.BUILD_DIR / "bench_flash"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {"kept": (build.CSRC / "flash_attention.cu", [])}
+    for spec in also:
+        label, _, rest = spec.partition("=")
+        path, _, flags = rest.partition(":")
+        jobs[label] = (Path(path), [f for f in flags.split(",") if f])
+    procs = {}
+    for label, (src, extra) in jobs.items():
+        lib = out_dir / f"flash_{label}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, *extra, "-o", str(lib), str(src)]
+        procs[label] = (lib, time.perf_counter(),
+                        subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for label, (lib, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        keep = [ln.strip() for ln in log.splitlines()
+                if any(w in ln for w in ("registers", "spill", "stack", "warning",
+                                         "error", "Compiling entry"))]
+        emit("build", build=label, rc=proc.returncode,
+             seconds=time.perf_counter() - t0, ptxas=keep)
+        if proc.returncode == 0:
+            libs[label] = str(lib)
+    return libs
+
+
+def _use(lib_path):
+    import ctypes
+
+    from repro_torch.kernels import flash_attention as fa
+
+    fn = fa.bind(ctypes.CDLL(lib_path))
+    fa._fn = lambda: fn
+    return fa
+
+
+def _inputs(B, Sq, Sk, KV, G, D, seed):
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    q = torch.randn((B, Sq, KV, G, D), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, Sk, KV, D), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, Sk, KV, D), generator=g, device="cuda").bfloat16()
+    return q, k, v
+
+
+def child_check(label, lib_path):
+    import torch
+
+    from repro_torch.kernels import ref
+
+    fa = _use(lib_path)
+    results, ok_all = {}, True
+    for i, (name, B, Sq, Sk, KV, G, D, causal, cap) in enumerate(CASES):
+        q, k, v = _inputs(B, Sq, Sk, KV, G, D, seed=i)
+        out = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
+        torch.cuda.synchronize()
+        errs, ok = ref.flash_attention_check(out, q, k, v, causal=causal, softcap=cap)
+        results[name] = {**errs, "ok": ok}
+        ok_all &= ok
+    emit("check", build=label, ok=ok_all, cases=results)
+    return 0 if ok_all else 1
+
+
+def child_time(libs, iters):
+    import torch
+    import torch.nn.functional as F
+
+    import ctypes
+
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+
+    fns = {label: fa.bind(ctypes.CDLL(path)) for label, path in libs.items()}
+
+    for name, B, S, KV, G, D in TIMED:
+        q, k, v = _inputs(B, S, S, KV, G, D, seed=100)
+        flops, nbytes = chip_smoke._flash_work(q, k, True)
+        bound_ms, by = chip_smoke.bound(flops, nbytes, chip_smoke.PEAK_BF16)
+        order = list(libs) + list(reversed(libs))
+        times = {label: [] for label in libs}
+        for label in order:
+            fa._fn = (lambda f: (lambda: f))(fns[label])
+            times[label].append(chip_smoke.time_ms(
+                lambda: fa.flash_attention(q, k, v, causal=True), iters))
+        qt = q.reshape(B, S, KV * G, D).transpose(1, 2).contiguous()
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        lib_ms = chip_smoke.time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+        emit("time", shape=name, B=B, S=S, KV=KV, G=G, D=D, flops=flops,
+             bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+             ms={label: t for label, t in times.items()},
+             tflops={label: flops / (min(t) * 1e9) for label, t in times.items()},
+             ms_over_library={label: min(t) / lib_ms for label, t in times.items()})
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--also", action="append", default=[],
+                    help="LABEL=PATH[:FLAGS]: another source to build and time beside")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--child", choices=("check", "time"))
+    ap.add_argument("--lib", action="append", default=[], help="label=path (child)")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_flash needs a CUDA device; none is available")
+    if args.child:
+        libs = dict(x.split("=", 1) for x in args.lib)
+        if args.child == "check":
+            (label, path), = libs.items()
+            return child_check(label, path)
+        return child_time(libs, args.iters)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    emit("device", kind=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    libs = build_all(args.also)
+    passed = {}
+    me = [sys.executable, str(Path(__file__).resolve())]
+    for label, path in libs.items():
+        try:
+            rc = subprocess.run(me + ["--child", "check", "--lib", f"{label}={path}"],
+                                timeout=120).returncode
+        except subprocess.TimeoutExpired:
+            emit("check", build=label, ok=False, error="timed out: the kernel hung")
+            continue
+        if rc == 0:
+            passed[label] = path
+    if passed:
+        try:
+            subprocess.run(me + ["--child", "time", "--iters", str(args.iters)]
+                           + [f"--lib={label}={path}" for label, path in passed.items()],
+                           timeout=300, check=False)
+        except subprocess.TimeoutExpired:
+            emit("time", error="timed out")
+    return 0 if len(passed) == len(libs) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,43 +2,76 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_fa_kernel / flash_attention), which the JAX model reaches through its
-// jnp twin _flash_attention_qchunked for self-attention with S > 2048.
+// jnp twin _flash_attention_qchunked for self-attention with S > 2048. It
+// computes what _fa_kernel computes: scaled Q K^T, optional tanh softcap,
+// the causal mask with the -1e30 fill, an online softmax, P V, and the
+// division by the row sum clamped at 1e-30.
 //
 // What bounds it: at the prefill shape (qwen3-1.7b, B=2, S=4096, 16 heads,
 // D=128, causal) one call does 4*B*H*S*S*D/2 = 1.37e11 FLOP on ~100 MB of
-// q/k/v/o, so it is bound by operations (the tensor cores), not bytes.
+// q/k/v/o, so it is bound by operations (the tensor cores), not bytes: the
+// design is about keeping wgmma busy.
 //
-// Design (not the TPU grid carried over step by step): one CTA of 4 warps
-// per (batch*head, 64-row q tile). The TPU's sequential kv grid axis
-// becomes a loop over 64-row kv tiles inside the CTA, so the running max,
-// denominator and accumulator never leave the SM. Warp w owns q rows
-// [16w, 16w+16) throughout. Causal kv tiles wholly above the diagonal are
-// never loaded, and q tiles are scheduled heaviest first. q head h reads
-// kv head h / G in place (no repeat of K/V). Ragged Sq / Sk are masked
-// here: rows past Sq are zero-filled and never written, keys past Sk are
-// zero-filled and masked out. The model layout (B, S, KV, G, D) is read in
-// place through strides: q is seen as (B, S, H, D) with H = KV*G, k/v as
-// (B, S, KV, D); the last dimension must be contiguous and every stride a
-// multiple of 16 bytes.
+// The model layout (B, S, KV, G, D) is read in place: q is seen as
+// (B, S, H, D) with H = KV*G, k/v as (B, S, KV, D), and q head h reads kv
+// head h / G (no repeat of K/V). The last dimension is contiguous and every
+// stride a multiple of 16 bytes, as TMA needs.
 //
-//   * bf16 (the serving path): FA2-style. Scores and the output accumulator
-//     live in registers as mma.sync m16n8k16 fragments (f32 accumulate);
-//     the softmax runs on those fragments with quad shuffles, and the
-//     probabilities go to the P@V product straight from registers. K/V
-//     tiles are double-buffered in shared memory with cp.async, so the
-//     next tile loads while this one computes; fragments come in through
-//     ldmatrix (V transposed on the fly).
-//   * f32 (exact to f32 rounding, for tests at f32): the tiles are staged
-//     in shared memory and both products are plain FMA loops.
-// Not yet: wgmma/TMA and warp specialisation (later work).
+//   * bf16 (the serving path), FlashAttention-3's shape. A CTA of three
+//     warpgroups works on 128-row q tiles of one (batch, head) each. Tiles
+//     are numbered heaviest first (causal q tiles from the last), and
+//     causal kv tiles wholly above the diagonal are never loaded. The grid
+//     is persistent: one CTA per SM walks a snake through the numbered
+//     tiles (even rounds left to right, odd ones right to left), which
+//     evens out the causal tiles' sizes, lets the producer load the next
+//     tile's Q, K and V while the consumers finish this one, and lifts any
+//     limit on B * H.
+//     - Producer warpgroup (registers lowered to 40 by setmaxnreg): one
+//       thread issues TMA loads. Tensor maps over the strided model layout
+//       (rank 4: D, heads, S, B; built on the host with
+//       cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
+//       no -lcuda) copy 64-column boxes (the 128-byte swizzle span) into
+//       shared memory with the 128-byte swizzle; rows past Sq or Sk come
+//       in as zeros. Q has a full and an empty mbarrier (released after the
+//       tile's last Q K^T); K and V stream through 2 stages of 128 keys,
+//       each with a full and an empty mbarrier, K and V on separate
+//       barriers so Q K^T starts before V has landed. At D = 128:
+//       Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.
+//     - Two consumer warpgroups (registers raised to 232), 64 q rows each.
+//       S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
+//       K-major, through swizzled descriptors; O += P V is wgmma with A = P
+//       in registers (the S accumulator's fragment layout is the register
+//       A operand's, so P is S converted to bf16 in place) and B = V in
+//       shared memory, MN-major (the descriptor's transpose bit). Both
+//       accumulate in f32 registers. The softmax runs on the accumulator
+//       fragments (a row's 128 keys sit in one quad of lanes; max and sum
+//       by halving trees, not serial chains), with scale * log2(e) folded
+//       into one FFMA before ex2. Only tiles that cross the diagonal or the
+//       ragged end of Sk are masked; the others run a mask-free body. One
+//       warpgroup's softmax overlaps the other's products: the two run
+//       out of step on the tensor cores with no barrier between them.
+//     - Epilogue: normalise in registers, write bf16 through the output's
+//       strides, rows past Sq skipped.
+//   * f32 (exact to f32 rounding, for tests at f32; wgmma has no exact
+//     f32): one CTA of 4 warps per (batch*head, 64-row q tile); the tiles
+//     are staged in shared memory and both products are plain FMA loops.
+//
+// Measured on the H100 and left out, being slower (PERF.md has the times):
+// issuing Q K_j^T ahead of P_{j-1} V_{j-1} inside a warpgroup, so that its
+// own exponentials overlap its P V product; making the two consumer
+// warpgroups take turns through named barriers (ping-pong); one CTA per
+// tile instead of the persistent grid. Not done: packing the G q heads of
+// one kv head into one CTA, skipping the half of a diagonal tile that the
+// first warpgroup's rows mask whole, a TMA store of the output.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;  // q rows per CTA
-constexpr int BK = 64;  // kv rows per tile
+constexpr int BQ = 64;  // f32: q rows per CTA
+constexpr int BK = 64;  // f32: kv rows per tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int WROWS = BQ / NWARPS;  // q rows owned by one warp (16)
@@ -58,43 +91,97 @@ __device__ __forceinline__ float masked_score(float s, float scale, float softca
   return (key >= Sk || (causal && key > row)) ? NEG_INF : s;
 }
 
-// ======================================================= bf16: registers
+// ======================================================= bf16: Hopper
 using bf16 = __nv_bfloat16;
+
+constexpr int HBQ = 128;           // q rows per CTA: two consumer warpgroups of 64
+constexpr int HBK = 128;           // keys per K/V stage
+constexpr int STAGES = 2;          // K/V ring depth
+constexpr int HTHREADS = 3 * 128;  // producer + two consumer warpgroups
+constexpr int BOX_COLS = 64;       // bf16 columns of one box: the 128-byte swizzle span
+constexpr int ROW_BYTES = 128;     // one swizzled box row
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct HopperLayout {
+  static constexpr int BOXES = D / BOX_COLS;          // boxes per tile row
+  static constexpr int Q_BOX = HBQ * ROW_BYTES;       // bytes of one box of the Q tile
+  static constexpr int KV_BOX = HBK * ROW_BYTES;      // ... of a K or V stage
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BOXES * Q_BOX;
+  static constexpr int V = K + STAGES * BOXES * KV_BOX;
+  static constexpr int BAR = V + STAGES * BOXES * KV_BOX;
+  static constexpr int NBAR = 2 + 4 * STAGES;  // q full/empty, k/v full, k/v empty
+  static constexpr size_t BYTES = BAR + 8 * NBAR + 1024;  // + slack to align the base to 1 KB
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy global -> shared; zero-fills when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// returns once the phase of parity `phase` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// one box of a rank-4 tensor map -> shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(head), "r"(row),
+      "r"(batch)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins an accumulator's registers at this point: no read moves above a
+// wait, no write below an issue
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), swizzle mode 1
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -102,180 +189,437 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
-struct Bf16Layout {
-  static constexpr int LD = D + 8;  // 16-byte pad: ldmatrix rows hit distinct banks
-  static constexpr size_t TILE = sizeof(bf16) * BQ * LD;
-  static constexpr size_t BYTES = 5 * TILE;  // Q + two K + two V tiles
-};
+// d (64 x 128) = A (64 x 16, shared, K-major) . B (128 x 16, shared, K-major)^T,
+// plus d where acc != 0
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "},\n"
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
 
-// rows [row0, row0 + 64) of one head -> shared memory, asynchronously
+// d (64 x 128) += A (64 x 16, registers) . B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "},\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "},\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S = Q K^T over D: D/16 k-steps; a k-step is 32 bytes along a swizzled
+// 128-byte row, and the next box starts at the next 64 columns
 template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long long stride,
-                                                int row0, int n_rows) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  constexpr int LD = Bf16Layout<D>::LD;
-  for (int i = threadIdx.x; i < BK * VPR; i += NTHREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    const bool ok = row0 + r < n_rows;
-    cp_async16(dst + r * LD + c, src + (long long)(ok ? row0 + r : 0) * stride + c, ok);
+__device__ __forceinline__ void qk_issue(float (&s)[64], const unsigned char* q,
+                                         const unsigned char* k) {
+  using LY = HopperLayout<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk % 4) * 32;
+    const uint64_t da = smem_desc(q + (kk / 4) * LY::Q_BOX + off, 16, 8 * ROW_BYTES);
+    const uint64_t db = smem_desc(k + (kk / 4) * LY::KV_BOX + off, 16, 8 * ROW_BYTES);
+    wgmma_ss_n128(s, da, db, kk > 0);
   }
 }
 
+// O += P V over the stage's 128 keys: V is MN-major (rows are keys, D is
+// contiguous); a k-step is 16 key rows, the leading offset steps to the
+// next 64 columns of D, the stride offset to the next 8 keys
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    fa_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int H, int G, int Sq, int Sk,
-                Strides qs, Strides ks, Strides vs, Strides os, float scale, float softcap,
-                int causal) {
-  constexpr int LD = Bf16Layout<D>::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;  // two buffers
-  bf16* Vs = Ks + 2 * BK * LD;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int kvh = h / G;
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // fragment row within the 8-row group
-  const int t4 = lane & 3;  // fragment column pair
-  const int row_a = q0 + warp * WROWS + g;  // this thread's two q rows
-  const int row_b = row_a + 8;
-
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + kvh * ks.h;
-  const bf16* vb = v + b * vs.b + kvh * vs.h;
-
-  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
-  const int nkt = (kv_end + BK - 1) / BK;
-  load_tile_async<D>(Qs, qb, qs.s, q0, Sq);
-  load_tile_async<D>(Ks, kb, ks.s, 0, Sk);
-  load_tile_async<D>(Vs, vb, vs.s, 0, Sk);
-  cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float acc[D / 8][4];
+__device__ __forceinline__ void pv_issue(float (&o)[D / 2], const uint32_t (&p)[HBK / 16][4],
+                                         const unsigned char* v) {
+  using LY = HopperLayout<D>;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.f, 0.f};  // this thread's partial row sums
+  for (int kk = 0; kk < HBK / 16; ++kk) {
+    const uint64_t db = smem_desc(v + kk * 16 * ROW_BYTES, LY::KV_BOX, 8 * ROW_BYTES);
+    if constexpr (D == 128)
+      wgmma_rs_n128(o, p[kk], db);
+    else
+      wgmma_rs_n64(o, p[kk], db);
+  }
+}
 
-  for (int j = 0; j < nkt; ++j) {
-    if (j + 1 < nkt) {  // prefetch the next K/V tile into the other buffer
-      const int nb = (j + 1) & 1;
-      load_tile_async<D>(Ks + nb * BK * LD, kb, ks.s, (j + 1) * BK, Sk);
-      load_tile_async<D>(Vs + nb * BK * LD, vb, vs.s, (j + 1) * BK, Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
+// halving tree over the first 2W values in place; the result lands in a[0]
+template <int W, int N, typename Op>
+__device__ __forceinline__ void tree(float (&a)[N], Op op) {
+  if constexpr (W >= 1) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_x4(qf[kk], Qs + (warp * WROWS + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
-    }
-    const bf16* Kt = Ks + (j & 1) * BK * LD;
-    const bf16* Vt = Vs + (j & 1) * BK * LD;
+    for (int i = 0; i < W; ++i) a[i] = op(a[i], a[i + W]);
+    tree<W / 2>(a, op);
+  }
+}
 
-    // S = Q K^T: 16 rows x 64 keys per warp, eight m16n8 fragments
-    float s[BK / 8][4];
+template <bool CAP>
+struct Softmax {
+  float m[2] = {NEG_INF, NEG_INF};  // running max of this thread's two rows
+  float l[2] = {0.f, 0.f};          // this thread's partial row sums
+  float mul;                        // score -> log2 units
+  float cap_in;                     // scale / softcap
+  float softcap;
+
+  // scores -> unnormalised probabilities in place; returns in corr the
+  // factors that rescale what was accumulated before this tile.
+  // Accumulator element i sits at row g + 8*((i>>1)&1) and column
+  // 8*(i>>2) + 2*t4 + (i&1) of the warp's 16 x 128 slice.
+  template <bool MASK>
+  __device__ __forceinline__ void tile(float (&s)[64], float (&corr)[2], int k0, int row_a,
+                                       int t4, int Sk, int causal) {
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t kf[4];
-        ldsm_x4(kf, Kt + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
-                        ((lane / 8) % 2) * 8);
-        mma16816(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+    for (int i = 0; i < 64; ++i) {
+      if (CAP) s[i] = softcap * tanhf(s[i] * cap_in);
+      if (MASK) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int row = row_a + 8 * ((i >> 1) & 1);
+        if (key >= Sk || (causal && key > row)) s[i] = NEG_INF;
       }
     }
+    float neg[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mx[j] = fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+      tree<8>(mx, [](float a, float b) { return fmaxf(a, b); });
+      // a row's keys sit in one quad of lanes
+      mx[0] = fmaxf(mx[0], __shfl_xor_sync(FULL, mx[0], 1));
+      mx[0] = fmaxf(fmaxf(mx[0], __shfl_xor_sync(FULL, mx[0], 2)), m[r]);
+      corr[r] = ex2((m[r] - mx[0]) * mul);
+      m[r] = mx[0];
+      neg[r] = -mx[0] * mul;
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = ex2(fmaf(s[i], mul, neg[(i >> 1) & 1]));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) sum[j] = s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+      tree<8>(sum, [](float a, float b) { return a + b; });
+      l[r] = l[r] * corr[r] + sum[0];
+    }
+  }
+};
 
-    // online softmax on the fragments: elements 0,1 are row_a, 2,3 row_b
-    const int k0 = j * BK;
-    float mx[2] = {NEG_INF, NEG_INF};
+// P (bf16) as the register A operand of k-step kk: the accumulator's
+// elements 8kk..8kk+7 in order
+__device__ __forceinline__ void to_p(uint32_t (&p)[HBK / 16][4], const float (&s)[64]) {
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+  for (int kk = 0; kk < HBK / 16; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + t4 * 2 + (e & 1);
-        s[n][e] = masked_score(s[n][e], scale, softcap, key, e < 2 ? row_a : row_b, Sk,
-                               causal);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-    float m_new[2], corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // a row's 64 keys sit in one quad of lanes
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-      m_new[r] = fmaxf(m_r[r], mx[r]);
-      corr[r] = __expf(m_r[r] - m_new[r]);
-      m_r[r] = m_new[r];
-      l_r[r] *= corr[r];
-    }
-    // P as the A operand of P@V: k-step t takes fragments 2t and 2t+1
-    uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      const float p0 = __expf(s[n][0] - m_new[0]);
-      const float p1 = __expf(s[n][1] - m_new[0]);
-      const float p2 = __expf(s[n][2] - m_new[1]);
-      const float p3 = __expf(s[n][3] - m_new[1]);
-      l_r[0] += p0 + p1;
-      l_r[1] += p2 + p3;
-      pf[n / 2][(n & 1) * 2] = pack_bf16(p0, p1);
-      pf[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-    // O += P V: V fragments via a transposing ldmatrix
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-#pragma unroll
-      for (int t = 0; t < BK / 16; ++t) {
-        uint32_t vf[4];
-        ldsm_x4_t(vf, Vt + (t * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 +
-                         (lane / 16) * 8);
-        mma16816(acc[2 * dp], pf[t], vf[0], vf[1]);
-        mma16816(acc[2 * dp + 1], pf[t], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it refills
-  }
+    for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
 
-  float inv[2];
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(FULL, l, 1);
-    l += __shfl_xor_sync(FULL, l, 2);
-    inv[r] = 1.f / fmaxf(l, 1e-30f);
+  for (int i = 0; i < N; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+struct Barriers {
+  uint64_t* q_full;
+  uint64_t* q_empty;
+  uint64_t* k_full;  // [STAGES]
+  uint64_t* v_full;
+  uint64_t* k_empty;
+  uint64_t* v_empty;
+};
+
+// The CTA's work list. Tiles are numbered heaviest first (causal q tiles
+// from the last; within one, every (batch, head)); CTA c takes tiles
+// r * gridDim.x + c in even rounds r and r * gridDim.x + gridDim.x - 1 - c
+// in odd ones, a snake that evens out the causal tiles' sizes.
+struct Tile {
+  int h, b, q0, nkt;
+};
+struct Work {
+  int tiles, nqt, H, B, Sk, causal;
+
+  __device__ __forceinline__ int index(int r) const {
+    const int c = (r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    return r * gridDim.x + c;
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row_b : row_a;
-    if (row >= Sq) continue;
-    bf16* orow = o + b * os.b + (long long)row * os.s + h * os.h;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + t4 * 2) =
-          pack_bf16(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
+  __device__ __forceinline__ bool has(int r) const { return index(r) < tiles; }
+  __device__ __forceinline__ Tile at(int r) const {
+    const int i = index(r);
+    const int bh = i % (H * B);
+    Tile t;
+    t.h = bh % H;
+    t.b = bh / H;
+    t.q0 = (nqt - 1 - i / (H * B)) * HBQ;
+    const int kv_end = causal ? min(Sk, t.q0 + HBQ) : Sk;
+    t.nkt = (kv_end + HBK - 1) / HBK;
+    return t;
   }
+};
+
+template <int D>
+__device__ __forceinline__ void produce(const CUtensorMap* qm, const CUtensorMap* km,
+                                        const CUtensorMap* vm, unsigned char* smem, Barriers br,
+                                        Work wk, int G) {
+  using LY = HopperLayout<D>;
+  int j = 0;  // K/V tiles loaded so far, over all of the CTA's q tiles
+  for (int r = 0; wk.has(r); ++r) {
+    const Tile t = wk.at(r);
+    if (r > 0) mbar_wait(br.q_empty, (r - 1) & 1);  // the last Q K^T of tile r-1 is done
+    mbar_expect_tx(br.q_full, HBQ * D * sizeof(bf16));
+#pragma unroll
+    for (int c = 0; c < LY::BOXES; ++c)
+      tma_load(smem + LY::Q + c * LY::Q_BOX, qm, br.q_full, c * BOX_COLS, t.h, t.q0, t.b);
+    for (int jj = 0; jj < t.nkt; ++jj, ++j) {
+      const int st = j % STAGES;
+      const int ph = (j / STAGES) & 1;
+      mbar_wait(br.k_empty + st, ph ^ 1);  // the first round finds the stage free
+      mbar_expect_tx(br.k_full + st, HBK * D * sizeof(bf16));
+#pragma unroll
+      for (int c = 0; c < LY::BOXES; ++c)
+        tma_load(smem + LY::K + (st * LY::BOXES + c) * LY::KV_BOX, km, br.k_full + st,
+                 c * BOX_COLS, t.h / G, jj * HBK, t.b);
+      mbar_wait(br.v_empty + st, ph ^ 1);
+      mbar_expect_tx(br.v_full + st, HBK * D * sizeof(bf16));
+#pragma unroll
+      for (int c = 0; c < LY::BOXES; ++c)
+        tma_load(smem + LY::V + (st * LY::BOXES + c) * LY::KV_BOX, vm, br.v_full + st,
+                 c * BOX_COLS, t.h / G, jj * HBK, t.b);
+    }
+  }
+}
+
+template <int D, bool CAP>
+__device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* __restrict__ o,
+                                        Strides os, Work wk, int Sq, float scale,
+                                        float softcap) {
+  using LY = HopperLayout<D>;
+  const int w = threadIdx.x / 128 - 1;  // consumer warpgroup 0 or 1
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int t4 = lane & 3;
+  const bool lead = lane == 0;  // arrives for its warp
+  const int Sk = wk.Sk;
+  const int causal = wk.causal;
+  const unsigned char* qs = smem + LY::Q + w * 64 * ROW_BYTES;
+
+  float acc[D / 2];
+  float s[64];
+  uint32_t p[HBK / 16][4];
+  float corr[2];
+  int j = 0;  // K/V tiles consumed so far, over all of the CTA's q tiles
+  for (int r = 0; wk.has(r); ++r) {
+    const Tile t = wk.at(r);
+    const int wrow0 = t.q0 + 64 * w;                    // this warpgroup's first q row
+    const int row_a = wrow0 + 16 * warp + (lane >> 2);  // this thread's two rows
+    Softmax<CAP> sm;
+    sm.softcap = softcap;
+    sm.cap_in = CAP ? scale / softcap : 0.f;
+    sm.mul = CAP ? LOG2E : scale * LOG2E;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(br.q_full, r & 1);
+    for (int jj = 0; jj < t.nkt; ++jj, ++j) {
+      const int st = j % STAGES;
+      const int ph = (j / STAGES) & 1;
+      const unsigned char* ks = smem + LY::K + st * LY::BOXES * LY::KV_BOX;
+      const unsigned char* vs = smem + LY::V + st * LY::BOXES * LY::KV_BOX;
+      mbar_wait(br.k_full + st, ph);
+      wg_fence();
+      qk_issue<D>(s, qs, ks);
+      wg_commit();
+      wg_wait();
+      fence_regs(s);
+      // S has landed: free K, and Q after the tile's last K/V tile
+      if (lead) {
+        mbar_arrive(br.k_empty + st);
+        if (jj == t.nkt - 1) mbar_arrive(br.q_empty);
+      }
+      const int k0 = jj * HBK;
+      if (k0 + HBK > Sk || (causal && k0 + HBK - 1 > wrow0))
+        sm.template tile<true>(s, corr, k0, row_a, t4, Sk, causal);
+      else
+        sm.template tile<false>(s, corr, k0, row_a, t4, Sk, causal);
+      rescale(acc, corr);
+      to_p(p, s);
+      fence_regs(acc);
+      mbar_wait(br.v_full + st, ph);
+      wg_fence();
+      pv_issue<D>(acc, p, vs);
+      wg_commit();
+      wg_wait();
+      fence_regs(acc);
+      if (lead) mbar_arrive(br.v_empty + st);
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float l = sm.l[rr];
+      l += __shfl_xor_sync(FULL, l, 1);
+      l += __shfl_xor_sync(FULL, l, 2);
+      inv[rr] = 1.f / fmaxf(l, 1e-30f);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row_a + 8 * rr;
+      if (row >= Sq) continue;
+      bf16* orow = o + t.b * os.b + (long long)row * os.s + t.h * os.h + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            pack_bf16(acc[4 * n + 2 * rr] * inv[rr], acc[4 * n + 2 * rr + 1] * inv[rr]);
+    }
+  }
+}
+
+template <int D, bool CAP>
+__global__ void __launch_bounds__(HTHREADS, 1)
+    fa_fwd_hopper(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
+                  const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o, Strides os,
+                  Work wk, int G, int Sq, float scale, float softcap) {
+  using LY = HopperLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1 KB: tiles start on 1 KB boundaries
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + LY::BAR);
+  const Barriers br{bars, bars + 1, bars + 2, bars + 2 + STAGES, bars + 2 + 2 * STAGES,
+                    bars + 2 + 3 * STAGES};
+
+  if (threadIdx.x == 0) {
+    mbar_init(br.q_full, 1);
+    mbar_init(br.q_empty, 8);  // one arrive per consumer warp
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(br.k_full + st, 1);
+      mbar_init(br.v_full + st, 1);
+      mbar_init(br.k_empty + st, 8);
+      mbar_init(br.v_empty + st, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer: one branch to the end, no reconvergence
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) produce<D>(&qm, &km, &vm, smem, br, wk, G);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consume<D, CAP>(smem, br, o, os, wk, Sq, scale, softcap);
+  }
+}
+
+// cuTensorMapEncodeTiled, taken from the driver at run time
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
+            cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// rank-4 map (D, heads, S, batch) over a bf16 tensor with element strides
+// st (the wrapper gives a dim of size 1, never stepped, 8: 16 bytes, as TMA
+// needs); box (64, 1, rows, 1)
+bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* base, int D, int heads, int S,
+                int B, Strides st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * sizeof(bf16), (cuuint64_t)st.s * sizeof(bf16),
+                                 (cuuint64_t)st.b * sizeof(bf16)};
+  const cuuint32_t box[4] = {(cuuint32_t)BOX_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool CAP>
+int launch_tiles(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
+                  Strides os, Work wk, int G, int Sq, float scale, float softcap,
+                  cudaStream_t stream) {
+  auto kern = fa_fwd_hopper<D, CAP>;
+  const size_t bytes = HopperLayout<D>::BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  // persistent: one CTA per SM walks its share of the tiles
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int grid = wk.tiles < sms ? wk.tiles : sms;
+  kern<<<grid, HTHREADS, bytes, stream>>>(qm, km, vm, static_cast<bf16*>(o), os, wk, G, Sq,
+                                          scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
+                  int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                  float softcap, int causal, cudaStream_t stream) {
+  const int nqt = (Sq + HBQ - 1) / HBQ;
+  if ((long long)nqt * H * B > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  CUtensorMap qm, km, vm;
+  if (!tensor_map(enc, &qm, q, D, H, Sq, B, qs, HBQ) ||
+      !tensor_map(enc, &km, k, D, KVH, Sk, B, ks, HBK) ||
+      !tensor_map(enc, &vm, v, D, KVH, Sk, B, vs, HBK))
+    return (int)cudaErrorInvalidValue;
+  const Work wk{nqt * H * B, nqt, H, B, Sk, causal};
+  if (softcap > 0.f)
+    return launch_tiles<D, true>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap, stream);
+  return launch_tiles<D, false>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap, stream);
 }
 
 // ======================================================= f32: shared memory
@@ -453,7 +797,7 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
                           long long osb, long long oss, long long osh, float scale,
                           float softcap, int causal, void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Sk <= 0 ||
-      B * H > 65535)
+      (dtype == 0 && (long long)B * H > 65535))
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -462,10 +806,8 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
     return launch<float>(fa_fwd_f32<64>, F32Layout<64>::BYTES, FA_ARGS);
   if (dtype == 0 && D == 128)
     return launch<float>(fa_fwd_f32<128>, F32Layout<128>::BYTES, FA_ARGS);
-  if (dtype == 1 && D == 64)
-    return launch<bf16>(fa_fwd_bf16<64>, Bf16Layout<64>::BYTES, FA_ARGS);
-  if (dtype == 1 && D == 128)
-    return launch<bf16>(fa_fwd_bf16<128>, Bf16Layout<128>::BYTES, FA_ARGS);
+  if (dtype == 1 && D == 64) return launch_hopper<64>(FA_ARGS);
+  if (dtype == 1 && D == 128) return launch_hopper<128>(FA_ARGS);
 #undef FA_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,11 @@ or whose strides (or, on the card, start) are not 16-byte multiples is
 refused with a ValueError, on either device, so that the CPU runs of the
 model check the layout that the card needs.
 
+The bf16 kernel loads q, k and v by TMA through tensor maps that it
+builds over that layout from these strides (rank 4: D, heads, S, B); the
+f32 kernel walks the same strides with plain loads. A dim of size 1 is
+never stepped, and is given a stride of 16 bytes, as TMA needs.
+
 A CPU tensor takes the plain version (``ref.flash_attention_ref``); a CUDA
 tensor launches the kernel or raises.
 """
@@ -30,7 +35,11 @@ _HEAD_DIMS = (64, 128)
 
 
 def _fn():
-    lib = build.load("flash_attention")
+    return bind(build.load("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL):
+    """``fa_forward`` of a loaded library, with its C signature set."""
     fn = lib.fa_forward
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -44,7 +53,8 @@ def _fn():
 def _walk(t: torch.Tensor):
     """The (b, s, h) element strides of (B, S, heads…, D), or None where
     the kernel cannot walk the tensor in place."""
-    st = [0 if n == 1 else s for n, s in zip(t.shape, t.stride())]
+    vec = 16 // t.element_size()
+    st = [vec if n == 1 else s for n, s in zip(t.shape, t.stride())]
     if st[-1] != 1:
         return None
     if t.dim() == 5:  # q: (B, S, KV, G, D) with h = kv·G + g
@@ -55,7 +65,6 @@ def _walk(t: torch.Tensor):
     else:  # k/v: (B, S, KV, D)
         hs = st[2]
     strides = (st[0], st[1], hs)
-    vec = 16 // t.element_size()
     if any(s % vec for s in strides):
         return None
     return strides

@@ -150,6 +150,43 @@ def test_flash_wrapper_checks_and_strides():
         ops.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3), v)
 
 
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,strides", [
+    # the model layout: q (B, S, KV, G, D), k/v (B, S, KV, D), contiguous
+    (_bf16((2, 300, 8, 2, 128)), (300 * 2048, 2048, 128)),
+    (_bf16((2, 300, 8, 128)), (300 * 1024, 1024, 128)),
+    # KV = 1, G = 1, B = 1: a dim of size 1 is never stepped, and is given
+    # 16 bytes (8 bf16), the least stride a TMA map takes
+    (_bf16((2, 77, 1, 1, 64)), (77 * 64, 64, 8)),
+    (_bf16((1, 77, 1, 4, 64)), (8, 256, 64)),
+    (_bf16((3, 50, 1, 64)), (50 * 64, 64, 8)),
+    # q sliced out of a fused projection (q heads, then as many others):
+    # heads walk in place, rows step over the others
+    (torch.zeros((2, 64, 4, 2, 128), dtype=torch.bfloat16)[:, :, :2], (64 * 1024, 1024, 128)),
+])
+def test_flash_tensor_map_geometry(t, strides):
+    """The (b, s, h) element strides the wrapper hands the kernel, from
+    which the bf16 kernel encodes its (D, heads, S, B) tensor maps."""
+    assert fa._strides("q", t) == strides
+    assert all(s * t.element_size() % 16 == 0 for s in strides)
+
+
+@pytest.mark.parametrize("t", [
+    # a row of 68 bf16 is 136 bytes: not a 16-byte multiple
+    torch.zeros((1, 10, 2, 68), dtype=torch.bfloat16)[..., :64],
+    # D not contiguous
+    torch.zeros((1, 10, 64, 2), dtype=torch.bfloat16).transpose(2, 3),
+    # q whose (KV, G) pair does not merge into one head dim
+    torch.zeros((1, 10, 2, 3, 64), dtype=torch.bfloat16)[:, :, :, :2],
+])
+def test_flash_tensor_map_refuses(t):
+    with pytest.raises(ValueError, match="cannot walk"):
+        fa._strides("k", t)
+
+
 # ------------------------------------------------------------ merge
 def _pairs(keys, vals):
     return Counter(zip(np.asarray(keys).tolist(), np.asarray(vals).tolist()))
@@ -239,6 +276,58 @@ def test_flash_kernel_matches_plain_on_card(S, KV, G, D, dtype, causal, softcap)
     got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=causal, softcap=softcap)
     assert fa.LAUNCHES == before + 1
+    assert ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,KV,G,D,causal,softcap", [
+    (77, 77, 2, 2, 64, True, 0.0),        # shorter than one 128-row tile
+    (1000, 1000, 2, 2, 128, True, 0.0),   # ragged last tile
+    (2049, 2049, 8, 2, 128, True, 0.0),   # the first length on the flash path
+    (37, 150, 2, 2, 64, True, 0.0),       # Sq < Sk
+    (150, 37, 2, 2, 128, True, 0.0),      # Sq > Sk
+    (300, 300, 1, 1, 128, True, 0.0),     # G = 1, KV = 1
+    (300, 300, 1, 8, 64, True, 0.0),      # G = 8
+    (333, 333, 2, 2, 64, False, 0.0),
+    (333, 333, 2, 2, 128, False, 0.0),
+    (256, 256, 2, 4, 128, True, 30.0),    # softcap in bf16
+])
+def test_flash_bf16_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap):
+    _need_cuda()
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+               for a in _qkv(2, Sq, Sk, KV, G, D, seed=Sq + Sk + G))
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
+    errs, ok = ref.flash_attention_check(got, q, k, v, causal=causal, softcap=softcap)
+    assert fa.LAUNCHES == before + 1
+    assert ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True])
+def test_flash_bf16_kernel_reads_model_views_on_card(rope):
+    """q as the model makes it: the projection's einsum output (a strided
+    view), then RoPE; k/v sliced out of a wider tensor."""
+    _need_cuda()
+    from repro_torch.models import layers
+    from repro_torch.models.config import get_config
+
+    cfg = get_config("qwen3-1.7b")
+    B, S, KV, G, D = 1, 600, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((B, S, 256), dtype=np.float32)).to(
+        "cuda", torch.bfloat16)
+    wq = torch.from_numpy(rng.standard_normal((256, KV, G, D), dtype=np.float32) / 16).to(
+        "cuda", torch.bfloat16)
+    q = torch.einsum("bsd,dkgh->bskgh", x, wq)
+    if rope:
+        cos, sin = layers.rope_freqs(cfg, torch.arange(S, device="cuda"))
+        q = layers.apply_rope(q, cos, sin)
+    kv = torch.from_numpy(rng.standard_normal((B, S, KV, 3 * D), dtype=np.float32)).to(
+        "cuda", torch.bfloat16)
+    k, v = kv[..., :D], kv[..., D:2 * D]
+    got = ops.flash_attention(q, k, v, causal=True)
+    errs, ok = ref.flash_attention_check(got, q, k, v, causal=True)
     assert ok, errs
 
 
