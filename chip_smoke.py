@@ -11,10 +11,13 @@ exits non-zero without the final line:
                started together, with ptxas registers / shared memory;
   3. kernels — each kernel against its plain PyTorch version on the card,
                with its time, the plain version's and a library yardstick's
-               (the preprocess kernel bit for bit); flash at the prefill
+               (the preprocess kernels bit for bit); flash at the prefill
                shape, at S = 2,049 (the first length on the flash path) and
                8,192, non-causal, softcapped, ragged and in f32, each with
-               its time over SDPA's;
+               its time over SDPA's; the two-run merge at edges and 2^20
+               keys; the per-image preprocess at edges, and the batch
+               preprocess over one minibatch's local share (171 crops of
+               the corpus) beside the per-image loop it replaces;
   4. small   — a smoke-width model on the card against the same model on
                the CPU (plain versions) at a prompt that takes the flash path;
   5. main    — qwen3-1.7b at full width (random weights from a seed) through
@@ -22,22 +25,29 @@ exits non-zero without the final line:
                warm (attach, no prefill) through a KV-cache store on an
                OffloadFS volume behind 4 storage engines, and in memory;
                tokens must agree, every fetched cache must equal the
-               prefill's bit for bit, and the path must launch both kernels;
+               prefill's bit for bit, and the path must launch both kernels:
+               flash once a layer per prefill, the k-way merge once a fetch
+               that arrived in more than one run;
   6. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
                synthetic corpus (sides 64-512) on a volume behind one
                storage engine: a third of each 256-image minibatch
                preprocessed by the engine's numpy stub, the rest on the card
-               by the preprocess kernel; every batch bit for bit equal to a
-               host numpy golden, before and after a checkpoint into
-               OffloadDB, a remount and a resume;
+               by one batch preprocess launch a minibatch; every batch bit
+               for bit equal to a host numpy golden, before and after a
+               checkpoint into OffloadDB, a remount and a resume;
   7. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
                keys of fig21's shape, a ~10 % filter: the pushdown scan,
-               merged on the card by the merge kernel, equals the local
-               scan, and each of its merges equals the plain merge bit for
+               merged on the card by one k-way merge launch, equals the
+               local scan, and its merge equals the plain merge bit for
                bit. fig21's keys all tie on their 4-byte prefix, so the
                merge there orders nothing: streams of the scan's lengths
                with distinct prefixes go through ``merge_row_streams`` on
-               the card against a plain host merge.
+               the card against a plain host merge;
+  8. merge_at_path — the k-way merge timed at the path's shapes (a fetch's
+               900 chunk indices in its runs and in 900 runs of one, the
+               scan's and the distinct-prefix streams) against its plain
+               version, one stable sort and, at the fetch, the two-run fold
+               it replaces; each bit for bit.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -105,6 +115,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn``, a loop of many small launches, in ms:
+    captured once into a CUDA graph and timed by ``time_ms`` over replays,
+    so that neither the host's Python between launches nor the launch
+    queue's depth (about a thousand) is counted as the card's time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, iters)
+    del graph
+    return ms
 
 
 def merge_library(a_k, a_v, b_k, b_v):
@@ -274,35 +304,66 @@ def phase_kernels():
     return fa_rec
 
 
-def time_merge_at_path(nchunks: int, nruns: int):
-    """Time the merge fold of ``KvCacheStore._assemble`` at the main path's
-    shape: ``nchunks`` chunk indices arriving as ``nruns`` ascending runs."""
+def merge_library_runs(keys, vals):
+    """The k-way merge's library yardstick (never called by the port): one
+    stable sort of the runs' keys laid back to back, then a gather."""
+    import torch
+
+    out_k, order = torch.sort(keys, stable=True)
+    return out_k, vals[order]
+
+
+def time_merge_at_path(nchunks: int, nruns: int, scans):
+    """Time the k-way merge at the path's shapes: ``KvCacheStore._assemble``'s
+    ``nchunks`` chunk indices arriving as ``nruns`` ascending runs, as 72
+    (the most runs a cold fetch has been seen to arrive in) and as
+    ``nchunks`` runs of one (the most a fetch can have), and each recorded
+    input of ``merge_row_streams`` in ``scans`` (name → (keys, vals,
+    offsets)). Each is held bit for bit against the plain version; the
+    fetch shapes also time the fold of two-run merges that they replaced
+    (one launch a run, as a CUDA graph)."""
     import torch
 
     from repro_torch.kernels import kvmerge, ref
 
-    idx = torch.arange(nchunks, dtype=torch.int32, device="cuda")
-    runs = [idx[r::nruns].contiguous() for r in range(nruns)]
-    slots = [r.clone() for r in runs]
+    def fetch_input(runs):
+        idx = torch.arange(nchunks, dtype=torch.int32, device="cuda")
+        keys = torch.cat([idx[r::runs] for r in range(runs)])
+        lengths = [idx[r::runs].numel() for r in range(runs)]
+        return keys, torch.arange(nchunks, dtype=torch.int32, device="cuda"), \
+            [0, *torch.tensor(lengths).cumsum(0).tolist()]
 
-    def fold(merge):
-        mk, mv = runs[0], slots[0]
-        for rk, rv in zip(runs[1:], slots[1:]):
-            mk, mv = merge(mk, mv, rk, rv)
-        return mk, mv
+    cases = {"fetch": fetch_input(nruns), "fetch_72_runs": fetch_input(72),
+             "fetch_900_of_one": fetch_input(nchunks), **scans}
+    out = {}
+    for name, (keys, vals, off) in cases.items():
+        off_t = torch.as_tensor(off, dtype=torch.int64)
+        errs = merge_errors(kvmerge.merge_runs(keys, vals, off),
+                            ref.merge_runs_ref(keys, vals, off_t), f"merge_runs {name}")
+        lib = merge_library_runs(keys, vals)
+        merge_errors(lib, ref.merge_runs_ref(keys, vals, off_t), f"stable sort {name}")
+        n, k = keys.numel(), len(off) - 1
+        b_ms, by = bound(n, 16.0 * n, PEAK_F32)
+        rec = {"n": n, "runs": k, **errs,
+               "ms": time_ms(lambda: kvmerge.merge_runs(keys, vals, off), 50),
+               "plain_ms": time_ms(lambda: ref.merge_runs_ref(keys, vals, off_t), 3,
+                                   warmup=1),
+               "library_ms": time_ms(lambda: merge_library_runs(keys, vals), 50),
+               "bound_ms": b_ms, "bound_by": by}
+        if name.startswith("fetch"):  # the fold of two-run merges the path ran before
+            runs = [(keys[a:b], vals[a:b]) for a, b in zip(off[:-1], off[1:])]
 
-    errs = merge_errors(fold(kvmerge.merge_sorted), fold(ref.merge_sorted_ref),
-                        "merge at the path's shape")
-    iters = 50
-    n_elems = sum(len(runs[0]) + sum(len(r) for r in runs[1:i + 1])
-                  for i in range(1, nruns))
-    b_ms, by = bound(n_elems, 16.0 * n_elems, PEAK_F32)
-    return {**errs,
-            "ms": time_ms(lambda: fold(kvmerge.merge_sorted), iters),
-            "plain_ms": time_ms(lambda: fold(ref.merge_sorted_ref), iters),
-            "library_ms": time_ms(lambda: fold(merge_library), iters),
-            "bound_ms": b_ms, "bound_by": by,
-            "shape": {"chunks": nchunks, "runs": nruns, "merged_elems": n_elems}}
+            def fold():
+                mk, mv = runs[0]
+                for rk, rv in runs[1:]:
+                    mk, mv = kvmerge.merge_sorted(mk, mv, rk, rv)
+                return mk, mv
+
+            merge_errors(fold(), ref.merge_runs_ref(keys, vals, off_t), "fold")
+            rec["fold_ms"] = time_graph_ms(fold, 20)
+        rec["ms_over_library"] = rec["ms"] / rec["library_ms"]
+        out[name] = rec
+    return out
 
 
 def prep_library(img_chw, flip, mean, std):
@@ -378,8 +439,72 @@ def phase_kernels_preprocess():
                                                                  flip=flip), 10),
             "library_ms": time_ms(lambda: prep_library(img, flip, mean, std), 50),
             "bound_ms": b_ms, "bound_by": by, "flops": flops, "bytes": nbytes}
+    results["batch171"] = _preprocess_batch_case(mean, std)
     emit("kernels_preprocess", cases=results)
-    return results["crop512_flip"]
+    return results["batch171"]
+
+
+def _preprocess_batch_case(mean, std):
+    """One minibatch's local share in one batch launch: 171 crops of the
+    corpus (sides 64 to 512), cut and flipped from the seeds as OffloadPrep
+    draws them, packed as ``OffloadPrep`` packs them; bit for bit against
+    the plain version, timed beside the loop of per-image launches it
+    replaces and a loop of ``prep_library`` calls (no one PyTorch call
+    resizes a ragged batch); both loops are timed as CUDA graphs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.preprocess import random_crop_params, synthetic_image
+    from repro_torch.kernels import preprocess as kpp
+    from repro_torch.kernels import ref
+
+    crops, flips = [], []
+    for i in range(PREP_BATCH - PREP_BATCH // 3):
+        img = synthetic_image(i, max_side=512)
+        rng = np.random.RandomState(i)
+        y, x, ch, cw = random_crop_params(rng, img.shape[0], img.shape[1])
+        crops.append(img[y:y + ch, x:x + cw])
+        flips.append(bool(rng.rand() < 0.5))
+    n = len(crops)
+    packed, desc = kpp.pack_crops(crops, flips, list(range(n)), "cuda")
+    out = torch.empty((n, PREP_OUT, PREP_OUT, 3), dtype=torch.float64, device="cuda")
+    want = torch.zeros_like(out)
+    kpp.preprocess_batch(packed, desc, out)
+    ref.preprocess_batch_ref(packed, desc, want)
+    torch.cuda.synchronize()
+    differing = int((out.view(torch.int64) != want.view(torch.int64)).sum().item())
+    err = (out - want).abs().max().item()
+    check(differing == 0, f"preprocess batch171: {differing} elements differ from the plain "
+                          f"version (max abs error {err})")
+    views = [(packed[o:o + h * w * c].view(h, w, c).permute(2, 0, 1), bool(f), s)
+             for o, h, w, c, f, s in desc.tolist()]
+
+    def per_image():
+        for img, flip, slot in views:
+            kpp.preprocess_image(img, out_size=PREP_OUT, flip=flip,
+                                 out=out[slot].permute(2, 0, 1))
+
+    def library():
+        for img, flip, slot in views:
+            out[slot] = prep_library(img, flip, mean, std).permute(1, 2, 0)
+
+    flops = bytes_ = 0.0
+    for img, _, _ in views:
+        f, b = prep_work(img)
+        flops, bytes_ = flops + f, bytes_ + b
+    b_ms, by = bound(flops, bytes_, PEAK_F64)
+    rec = {"images": n, "crop_bytes": packed.numel(), "differing_elements": differing,
+           "max_abs_err": err,
+           "ms": time_ms(lambda: kpp.preprocess_batch(packed, desc, out), 20),
+           "per_image_loop_ms": time_graph_ms(per_image, 10),
+           "plain_ms": time_ms(lambda: ref.preprocess_batch_ref(packed, desc, want), 2,
+                               warmup=1),
+           "library_ms": time_graph_ms(library, 5),
+           "bound_ms": b_ms, "bound_by": by, "flops": flops, "bytes": bytes_}
+    rec["ms_over_per_image_loop"] = rec["ms"] / rec["per_image_loop_ms"]
+    del out, want
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ------------------------------------------------------------ phase 4
@@ -456,6 +581,28 @@ def main_path_model():
     return cfg, model, params, prompt
 
 
+def serving_store():
+    """The main path's KV-cache store on the card: 1 MiB chunks on a volume
+    of 2^19 blocks with 4 stripes behind 4 storage engines, reached through
+    a least-outstanding offloader. ``scripts/profile_serving.py`` traces a
+    fetch from the same."""
+    from repro_torch.core import (AcceptAll, BlockDevice, OffloadEngine, OffloadFS,
+                                  RpcFabric, TaskOffloader, serve_engine)
+    from repro_torch.serve import KvCacheStore, register_kv_stubs
+
+    fs = OffloadFS(BlockDevice(num_blocks=1 << 19), node="init0", shards=4)
+    fabric = RpcFabric()
+    engines = []
+    for t in range(4):
+        eng = OffloadEngine(fs, node=f"storage{t}")
+        register_kv_stubs(eng)
+        serve_engine(eng, fabric, AcceptAll())
+        engines.append(eng)
+    off = TaskOffloader(fs, fabric, node="init0", targets=[e.node for e in engines],
+                        lb_policy="least_outstanding")
+    return KvCacheStore(fs, off=off, chunk_blocks=256)
+
+
 def _bits(t):
     """A tensor's bit patterns, so that equality is bit for bit (-0.0 is
     not 0.0)."""
@@ -469,31 +616,16 @@ def _bits(t):
 def phase_main():
     import torch
 
-    from repro_torch.core import (AcceptAll, BlockDevice, OffloadEngine,
-                                  OffloadFS, RpcFabric, TaskOffloader,
-                                  serve_engine)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kvmerge
-    from repro_torch.serve import KvCacheStore, generate, register_kv_stubs
+    from repro_torch.serve import generate
     from repro_torch.tree import tree_leaves, tree_map
 
     t0 = time.perf_counter()
     cfg, model, params, prompt = main_path_model()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-
-    dev = BlockDevice(num_blocks=1 << 19)
-    fs = OffloadFS(dev, node="init0", shards=4)
-    fabric = RpcFabric()
-    engines = []
-    for t in range(4):
-        eng = OffloadEngine(fs, node=f"storage{t}")
-        register_kv_stubs(eng)
-        serve_engine(eng, fabric, AcceptAll())
-        engines.append(eng)
-    off = TaskOffloader(fs, fabric, node="init0", targets=[e.node for e in engines],
-                        lb_policy="least_outstanding")
-    store = KvCacheStore(fs, off=off, chunk_blocks=256)
+    store = serving_store()
 
     timed = _Timed()
     model.apply = timed.wrap(lambda *a, **kw: kw.get("mode", "train"), model.apply)
@@ -516,9 +648,20 @@ def phase_main():
         return cache
 
     store.put, store.fetch = put_spy, fetch_spy
+    runs_per_fetch = []  # the arrival runs of every fetch's assembly
+    assemble = store._assemble
+
+    def assemble_spy(arrivals):
+        r0 = store.stats.merge_runs
+        out = assemble(arrivals)
+        runs_per_fetch.append(store.stats.merge_runs - r0)
+        return out
+
+    store._assemble = assemble_spy
 
     def drive(kv_store):
         fa0, mg0, f0 = fa.LAUNCHES, kvmerge.LAUNCHES, store.stats.fetches
+        a0 = len(runs_per_fetch)
         t0 = time.perf_counter()
         toks = generate(model, params, prompt, steps=STEPS, max_len=MAX_LEN,
                         kv_store=kv_store)
@@ -532,7 +675,8 @@ def phase_main():
                "decode_tok_per_s": BATCH * n_dec / (ms["decode"] / 1e3) if n_dec else None,
                "flash_launches": fa.LAUNCHES - fa0,
                "merge_launches": kvmerge.LAUNCHES - mg0,
-               "fetches": store.stats.fetches - f0}
+               "fetches": store.stats.fetches - f0,
+               "runs_per_fetch": runs_per_fetch[a0:]}
         # time to first token on the decode side: the cache and the first
         # token are there (cold: prefill + put + fetch; warm: fetch)
         run["ttft_ms"] = ms["prefill"] + ms["put"] + ms["fetch"]
@@ -558,9 +702,11 @@ def phase_main():
           f"want {cfg.num_layers}")
     check(r_warm["flash_launches"] == 0, "warm attach ran a prefill")
     check(r_mem["flash_launches"] == cfg.num_layers, "in-memory prefill skipped flash")
-    for r in (r_cold, r_warm):
-        check(r["merge_launches"] >= r["fetches"] >= 1,
-              f"merge launched {r['merge_launches']} times for {r['fetches']} fetches")
+    for r in (r_cold, r_warm):  # one k-way launch a fetch that needs a merge
+        multi = sum(1 for runs in r["runs_per_fetch"] if runs > 1)
+        check(r["fetches"] == len(r["runs_per_fetch"]) >= 1 and r["merge_launches"] == multi,
+              f"merge launched {r['merge_launches']} times for {r['fetches']} fetches "
+              f"in {r['runs_per_fetch']} runs")
     check(launches["flash_attention"] > 0 and launches["merge"] > 0,
           "a kernel of the path was never launched")
     entry = store.entries()[0]
@@ -573,8 +719,7 @@ def phase_main():
          fetched_cache_bit_equal=fetched,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          tokens=cold.tolist())
-    runs_per_fetch = max(2, store.stats.merge_runs // max(store.stats.fetches, 1))
-    return launches, entry.nchunks, runs_per_fetch
+    return launches, entry.nchunks, max(2, max(runs_per_fetch))
 
 
 # ------------------------------------------------------------ phase 6
@@ -696,8 +841,8 @@ def phase_prep():
     check(all(d == 0 for d in differing),
           f"batches differ from the host numpy golden in {differing} elements")
     n_local = n_batches * len(local_ids)
-    check(launches["preprocess"] == n_local > 0,
-          f"preprocess launched {launches['preprocess']} times for {n_local} local images")
+    check(n_local > 0 and launches["preprocess"] == n_batches,
+          f"preprocess launched {launches['preprocess']} times for {n_batches} local shares")
     planned = {"local": n_local, "offloaded": n_batches * sum(len(i) for _, i in remote),
                "rejected": 0, "rerouted": 0}
     check(stats == planned, f"prep.stats {stats}, planned {planned}")
@@ -736,41 +881,42 @@ def phase_prep():
 
 # ------------------------------------------------------------ phase 7
 class _MergeRecord:
-    """While in use, records the runs and the result of every
-    ``ops.merge_sorted`` call; the call itself is the path's, so the
-    kernel's count is untouched. ``hold`` then compares each result with
-    the stable plain merge of the same runs, bit for bit."""
+    """While in use, records the input and the result of every
+    ``ops.merge_runs`` call; the call itself is the path's, so the kernel's
+    count is untouched. ``hold`` then compares each result with the plain
+    k-way merge of the same runs, bit for bit."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
 
-        self.calls, self._ops, merge = [], ops, ops.merge_sorted
+        self.calls, self._ops, merge = [], ops, ops.merge_runs
 
-        def recorded(*runs):
-            out = merge(*runs)
-            self.calls.append((runs, out))
+        def recorded(keys, vals, offsets):
+            out = merge(keys, vals, offsets)
+            self.calls.append(((keys, vals, [int(o) for o in offsets]), out))
             return out
 
-        self._merge, ops.merge_sorted = merge, recorded
+        self._merge, ops.merge_runs = merge, recorded
         return self
 
     def __exit__(self, *exc):
-        self._ops.merge_sorted = self._merge
+        self._ops.merge_runs = self._merge
 
     def leaves(self):
-        """The lengths of the streams that the fold started from: the runs
-        that were not the result of an earlier merge."""
-        made = {id(t) for _, out in self.calls for t in out}
-        return [len(runs[i]) for runs, _ in self.calls for i in (0, 2)
-                if id(runs[i]) not in made]
+        """The lengths of the streams that the merges took."""
+        return [b - a for (_, _, off), _ in self.calls for a, b in zip(off[:-1], off[1:])]
 
     def hold(self, what: str) -> dict:
+        import torch
+
         from repro_torch.kernels import ref
 
-        for n, (runs, out) in enumerate(self.calls):
-            merge_errors(out, ref.merge_sorted_ref(*runs), f"{what}: merge {n}")
+        for n, ((keys, vals, off), out) in enumerate(self.calls):
+            merge_errors(out, ref.merge_runs_ref(keys, vals, torch.tensor(off)),
+                         f"{what}: merge {n}")
         return {"merges_held": len(self.calls),
-                "runs": [[len(runs[0]), len(runs[2])] for runs, _ in self.calls],
+                "runs": [[b - a for a, b in zip(off[:-1], off[1:])]
+                         for (_, _, off), _ in self.calls],
                 "distinct_keys": [int(out[0].unique().numel()) for _, out in self.calls]}
 
 
@@ -849,9 +995,9 @@ def phase_pushdown():
     wire = fabric.total_bytes() - b0
     check(rows_push == rows_local, f"pushdown rows ({len(rows_push)}) differ from the "
                                    f"local scan's ({len(rows_local)})")
-    check(launches > 0, "the pushdown scan never launched the merge kernel")
-    check(len(scan_merges.calls) == launches,
-          f"{len(scan_merges.calls)} merges recorded for {launches} launches")
+    check(launches == len(scan_merges.calls) == 1,
+          f"the pushdown scan launched the merge kernel {launches} times "
+          f"({len(scan_merges.calls)} merges recorded), want once")
     held_scan = scan_merges.hold("pushdown scan")
     check(not fs._leases, "the scans leaked a lease")
 
@@ -866,6 +1012,7 @@ def phase_pushdown():
         got = P.merge_row_streams(streams, "cuda")
     check(got == want, "merge_row_streams on distinct prefixes differs from the plain "
                        "host merge")
+    check(len(distinct_merges.calls) == 1, "the distinct-prefix merge took more than one call")
     held_distinct = distinct_merges.hold("distinct prefixes")
     emit("pushdown", keys=PUSHDOWN_KEYS, value_bytes=241, tables=len(db.tables), stripes=4,
          rows=len(rows_push), selectivity=len(rows_push) / PUSHDOWN_KEYS, load_s=load_s,
@@ -873,7 +1020,8 @@ def phase_pushdown():
          merge_launches=launches, rows_equal=True, scan_merges=held_scan,
          distinct_prefix_merge={"stream_lengths": lengths, "rows_out": len(got),
                                 "rows_equal": True, **held_distinct})
-    return launches
+    return launches, {"scan": scan_merges.calls[0][0],
+                      "scan_distinct_prefixes": distinct_merges.calls[0][0]}
 
 
 def main() -> int:
@@ -889,10 +1037,11 @@ def main() -> int:
     pp_rec = phase_kernels_preprocess()
     phase_small()
     launches, nchunks, nruns = phase_main()
-    mg_rec = time_merge_at_path(nchunks, nruns)
-    emit("merge_at_path", **mg_rec)
     prep_launches = phase_prep()
-    pushdown_launches = phase_pushdown()
+    pushdown_launches, scans = phase_pushdown()
+    merges = time_merge_at_path(nchunks, nruns, scans)
+    emit("merge_at_path", cases=merges)
+    mg_rec = merges["fetch"]
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -7,11 +7,15 @@ Builds the main path's model and prompt as ``chip_smoke.py`` does (its
 ``main_path_model``: qwen3-1.7b at full width, random weights from a seed,
 2 prompts of 4,096 tokens) on the card, warms up one in-memory
 ``generate``, then traces with ``torch.profiler`` one prefill and one
-decode step against its cache.
+decode step against its cache; then it puts that cache into the main
+path's store (``chip_smoke.serving_store``: 900 chunks behind 4 storage
+engines) and traces one fetch of it (chunk reads, the merge of the
+arrival runs, the unpack onto the card).
 For each it prints one JSON line: host wall time (ms, ending in a device
 synchronise), device busy time (sum of kernel self times, ms), the
 device's idle share, the number of kernel launches, and the kernels that
-took the most device time. The trace itself adds host overhead, so wall
+took the most device time, and the copies between host and device (count
+and device ms). The trace itself adds host overhead, so wall
 times here run above ``chip_smoke.py``'s. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -48,10 +52,13 @@ def trace(label, fn):
                if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    copies = [e for e in kernels if "Memcpy" in e.key]
     print(json.dumps({
         "trace": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "launches": sum(e.count for e in kernels),
+        "copies": {e.key[:40]: {"count": e.count, "device_ms": _device_us(e) / 1e3}
+                   for e in copies},
         "top": [{"name": e.key[:80], "count": e.count, "device_ms": _device_us(e) / 1e3}
                 for e in top]}), flush=True)
     return out
@@ -74,6 +81,12 @@ def main() -> int:
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         decode(params, cache, tok)  # warm-up step
         trace("decode_step", lambda: decode(params, cache, tok))
+    store = chip_smoke.serving_store()
+    store.put(prompt, cache)
+    del logits, cache
+    torch.cuda.empty_cache()
+    trace("fetch", lambda: store.fetch(prompt))
+    print(json.dumps({"fetch_merge_runs": store.stats.merge_runs}), flush=True)
     return 0
 
 

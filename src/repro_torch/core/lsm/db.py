@@ -239,7 +239,7 @@ class OffloadDB:
         SSTables overlap the range, ships the *program* to each target
         through ``TaskOffloader.submit`` (``placement_affinity`` keeps
         each sub-scan on the stripe that owns its extents), and merges the
-        per-target row streams on-device via ``ops.merge_sorted`` — only
+        per-target row streams on-device via ``ops.merge_runs`` — only
         matching rows (plus key-only suppression markers, see
         ``repro.core.pushdown``) cross the wire.  ``pushdown=False``
         evaluates the same program over initiator block shipping — the

@@ -36,7 +36,7 @@ planner):
   * suppressed — in range but failed the filter; **key + rank only**
   * tombstone — a delete marker; key + rank only
 
-The initiator merges per-target streams (``ops.merge_sorted`` on the
+The initiator merges per-target streams (``ops.merge_runs`` on the
 device), keeps the lowest rank per key, and only then drops
 tombstone/suppressed winners — byte-identical to a local block-shipping
 scan, which is exactly what the differential property test asserts.
@@ -443,9 +443,9 @@ def merge_row_streams(streams: List[List[tuple]],
     """Merge per-target row streams into one duplicate-free, key-sorted
     stream, lowest rank winning per key.  Each input is sorted by key with
     unique keys (targets dedupe internally).  The bulk ordering runs on
-    ``device`` via ``ops.merge_sorted`` over 4-byte key prefixes (the merge
-    kernel on a CUDA device); only the merged payload indices come back,
-    and ties (equal prefixes) and rank resolution happen on the host.
+    ``device`` via one ``ops.merge_runs`` over 4-byte key prefixes (the
+    merge kernel on a CUDA device); only the merged payload indices come
+    back, and ties (equal prefixes) and rank resolution happen on the host.
     """
     streams = [s for s in streams if s]
     if not streams:
@@ -461,18 +461,9 @@ def merge_row_streams(streams: List[List[tuple]],
     prefixes = np.array([_prefix32(r[0]) for r in flat], dtype=np.int32)
     idx = np.arange(len(flat), dtype=np.int32)
     cuts = np.cumsum([0] + [len(s) for s in streams])
-    arrs = [(torch.from_numpy(prefixes[a:b]).to(device),
-             torch.from_numpy(idx[a:b]).to(device))
-            for a, b in zip(cuts[:-1], cuts[1:])]
-    while len(arrs) > 1:
-        nxt = []
-        for i in range(0, len(arrs) - 1, 2):
-            nxt.append(ops.merge_sorted(arrs[i][0], arrs[i][1],
-                                        arrs[i + 1][0], arrs[i + 1][1]))
-        if len(arrs) % 2:
-            nxt.append(arrs[-1])
-        arrs = nxt
-    mv = arrs[0][1].cpu().numpy()
+    kv = torch.from_numpy(np.stack([prefixes, idx])).to(device)  # one copy
+    _, mv = ops.merge_runs(kv[0], kv[1], cuts.tolist())
+    mv = mv.cpu().numpy()
     mk = prefixes[mv]
     order = [flat[int(i)] for i in mv]
     rows: List[tuple] = []

@@ -11,10 +11,10 @@ normalized tensors.
 In the port the storage node's stub stays numpy (storage nodes have no
 GPU), and the initiator's share — its local images and any share that a
 target pushes back — runs on ``device``: the host decodes and crops, the
-unflipped uint8 crop goes to the device, and ``ops.preprocess_image``
-resizes, flips and normalises it into the image's slot of the batch. Both
-give the same float64 bits, so a batch does not depend on where a share
-ran.
+unflipped uint8 crops of the whole share go to the device in one copy
+(``preprocess.pack_crops``), and one ``ops.preprocess_batch`` launch
+resizes, flips and normalises each into its slot of the batch. Both give
+the same float64 bits, so a batch does not depend on where a share ran.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from repro_torch.core.offloader import TaskOffloader
 from repro_torch.data.preprocess import (decode_image, encode_image, preprocess_image,
                                          random_crop_params, synthetic_image)
 from repro_torch.kernels import ops
+from repro_torch.kernels.preprocess import pack_crops
 
 
 def stub_preprocess(io, images: List[dict], out_size: int) -> List[np.ndarray]:
@@ -137,44 +138,53 @@ class OffloadPrep:
         return torch.empty((n, self.out_size, self.out_size, 3), dtype=torch.float64,
                            device=self.device)
 
-    def _preprocess_into(self, buf: bytes, seed: int, slot: torch.Tensor) -> None:
-        """Decode on the host and draw the crop and the flip from
-        ``RandomState(seed)`` in ``preprocess_image``'s order; copy the
-        unflipped (ch, cw, C) uint8 crop to the device and resize, flip and
-        normalise it into ``slot`` (out, out, C)."""
-        img = decode_image(buf)
-        rng = np.random.RandomState(seed)
-        y, x, ch, cw = random_crop_params(rng, img.shape[0], img.shape[1])
-        flip = bool(rng.rand() < 0.5)
-        crop = torch.from_numpy(img[y : y + ch, x : x + cw].copy()).to(self.device)
-        ops.preprocess_image(crop.permute(2, 0, 1), out_size=self.out_size, flip=flip,
-                             out=slot.permute(2, 0, 1))
+    def _preprocess_into(self, images, batch: torch.Tensor) -> None:
+        """Preprocess ``images``, (encoded image, seed, slot) triples, into
+        their slots of ``batch`` (n, out, out, C). For each, decode on the
+        host and draw the crop and the flip from ``RandomState(seed)`` in
+        ``preprocess_image``'s order; then send the unflipped uint8 crops
+        to the device in one copy and launch once."""
+        crops, flips, slots = [], [], []
+        for buf, seed, slot in images:
+            img = decode_image(buf)
+            rng = np.random.RandomState(seed)
+            y, x, ch, cw = random_crop_params(rng, img.shape[0], img.shape[1])
+            flips.append(bool(rng.rand() < 0.5))
+            crops.append(img[y : y + ch, x : x + cw])
+            slots.append(slot)
+        if crops:
+            packed, desc = pack_crops(crops, flips, slots, self.device)
+            ops.preprocess_batch(packed, desc, batch)
 
     def _stub_on_device(self, io, images: List[dict], out_size: int) -> torch.Tensor:
         """``stub_preprocess`` for a share that ran on the initiator: the
         same blocks, preprocessed on the device."""
         out = self.new_batch(len(images))
-        for im, slot in zip(images, out):
-            buf = b"".join(io.offload_read(b, n) for b, n in im["runs"])[: im["size"]]
-            self._preprocess_into(buf, im["seed"], slot)
+        self._preprocess_into(
+            [(b"".join(io.offload_read(b, n) for b, n in im["runs"])[: im["size"]],
+              im["seed"], slot) for slot, im in enumerate(images)], out)
         return out
 
     def local_images(self, paths: Sequence[str], ids: Sequence[int],
                      batch: torch.Tensor, *, epoch_seed: int = 0) -> None:
         """Preprocess the local share on the device into ``batch[i]`` for
         each i in ``ids`` (counted ``local``)."""
-        for i in ids:
-            self._preprocess_into(self.fs.read(paths[i]),
-                                  self._image_seed(epoch_seed, i), batch[i])
+        self._preprocess_into([(self.fs.read(paths[i]), self._image_seed(epoch_seed, i), i)
+                               for i in ids], batch)
         self.stats["local"] += len(ids)
 
     def fill_share(self, batch: torch.Tensor, ids: Sequence[int], tensors) -> None:
         """Copy a remote share's images (numpy from a storage node, or
-        device tensors from the initiator's fallback) into their slots."""
+        device tensors from the initiator's fallback) into their slots; a
+        storage node's images go to a CUDA device in one asynchronous copy
+        from pinned memory (see ``preprocess.pack_crops``)."""
         if isinstance(tensors, torch.Tensor):
             batch[ids] = tensors
-        else:
-            batch[ids] = torch.from_numpy(np.stack(tensors)).to(self.device)
+            return
+        host = torch.empty((len(tensors), *tensors[0].shape), dtype=torch.float64,
+                           pin_memory=batch.is_cuda)
+        np.stack(tensors, out=host.numpy())
+        batch[ids] = host.to(batch.device, non_blocking=True)
 
     def note_remote_outcome(self, n: int, planned: str, ran: str) -> None:
         """Fold a remote share's resolution into the disjoint counters."""

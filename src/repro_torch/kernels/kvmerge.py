@@ -1,12 +1,14 @@
-"""Wrapper of the Hopper merge-path merge (``csrc/merge.cu``).
+"""Wrappers of the Hopper merges (``csrc/merge.cu``).
 
-It replaces the Pallas bitonic merge ``src/repro/kernels/kvmerge.py``
+They replace the Pallas bitonic merge ``src/repro/kernels/kvmerge.py``
 (``_bitonic_merge_kernel``) and the JAX wrapper's padding and tiling
-(``src/repro/kernels/ops.py:44-125``): the kernel takes runs of any
-lengths, so one launch covers every call.
+(``src/repro/kernels/ops.py:44-125``). ``merge_sorted`` merges two runs of
+any lengths in one launch (merge path); ``merge_runs`` merges k runs laid
+back to back in one launch (each key's rank), the result of folding
+``merge_sorted`` over them in order.
 
-A CPU tensor takes the plain version (``ref.merge_sorted_ref``); a CUDA
-tensor launches the kernel or raises.
+A CPU tensor takes the plain version (``ref.merge_sorted_ref``,
+``ref.merge_runs_ref``); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -16,21 +18,27 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# kernel launches since the last reset (the count a run reads to show that
-# its path went through the kernel)
+# launches of either merge kernel since the last reset (the count a run
+# reads to show that its path went through the kernel)
 LAUNCHES = 0
 
 _KEY_DTYPES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
 
 
-def _fn():
-    lib = build.load("merge")
-    fn = lib.merge_sorted
+_ARGTYPES = {
+    "merge_sorted": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_void_p],
+    "merge_runs": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p],
+}
+
+
+def _fn(name: str):
+    fn = getattr(build.load("merge"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -64,11 +72,69 @@ def merge_sorted(a_keys, a_vals, b_keys, b_vals):
     ak, av, bk, bv = (t.contiguous() for t in (a_keys, a_vals, b_keys, b_vals))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(ak.data_ptr(), av.data_ptr(), na, bk.data_ptr(),
-                    bv.data_ptr(), nb, out_k.data_ptr(), out_v.data_ptr(),
-                    _KEY_DTYPES[a_keys.dtype], stream)
+        err = _fn("merge_sorted")(ak.data_ptr(), av.data_ptr(), na, bk.data_ptr(),
+                                  bv.data_ptr(), nb, out_k.data_ptr(), out_v.data_ptr(),
+                                  _KEY_DTYPES[a_keys.dtype], stream)
     if err != 0:
         raise RuntimeError(f"merge kernel launch failed: cudaError {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out_k, out_v
+
+
+def _offsets(offsets, n: int) -> torch.Tensor:
+    """``offsets`` (k + 1 run boundaries on the host: a sequence or a CPU
+    tensor) as a CPU int64 tensor, checked: k >= 1, from 0 to ``n``,
+    non-decreasing."""
+    if isinstance(offsets, torch.Tensor):
+        if offsets.device.type != "cpu":
+            raise ValueError("offsets are run boundaries on the host")
+        off = offsets.to(torch.int64).reshape(-1)
+    else:
+        off = torch.as_tensor(list(offsets), dtype=torch.int64)
+    if off.dim() != 1 or off.numel() < 2:
+        raise ValueError(f"offsets are k + 1 >= 2 run boundaries, got {off.numel()}")
+    if off[0].item() != 0 or off[-1].item() != n or bool((off[1:] < off[:-1]).any()):
+        raise ValueError(f"offsets must run from 0 to {n} without decreasing")
+    return off
+
+
+def merge_runs(keys, vals, offsets):
+    """Merge k ascending (key, payload) runs laid back to back in ``keys``
+    and ``vals`` (1-D, keys int32, uint32 or float32 with ``+inf`` allowed,
+    payloads any 32-bit dtype), run j at ``[offsets[j], offsets[j + 1])``;
+    ``offsets`` are k + 1 boundaries on the host. Ties go by run, then by
+    position: the stable merge, what folding ``merge_sorted`` over the runs
+    in order gives. Returns (keys, vals)."""
+    if keys.dim() != 1 or keys.shape != vals.shape:
+        raise ValueError(f"keys and vals are 1-D of one length, got {tuple(keys.shape)} "
+                         f"and {tuple(vals.shape)}")
+    if keys.dtype not in _KEY_DTYPES:
+        raise ValueError(f"key dtype {keys.dtype}: need one of {sorted(map(str, _KEY_DTYPES))}")
+    if vals.element_size() != 4:
+        raise ValueError("payloads must be a 32-bit dtype")
+    dev = keys.device
+    if vals.device != dev:
+        raise ValueError("keys and vals must lie on one device")
+    n = keys.shape[0]
+    off = _offsets(offsets, n)
+    if dev.type == "cpu":
+        return ref.merge_runs_ref(keys, vals, off)
+    if dev.type != "cuda":
+        raise ValueError(f"merge_runs runs on cuda or cpu, not {dev}")
+    out_k = torch.empty(n, dtype=keys.dtype, device=dev)
+    out_v = torch.empty(n, dtype=vals.dtype, device=dev)
+    if n == 0:
+        return out_k, out_v
+    k_in, v_in = keys.contiguous(), vals.contiguous()
+    with torch.cuda.device(dev):
+        off_dev = off.to(dev, non_blocking=True)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn("merge_runs")(k_in.data_ptr(), v_in.data_ptr(), off_dev.data_ptr(),
+                                off.numel() - 1, n, out_k.data_ptr(), out_v.data_ptr(),
+                                _KEY_DTYPES[keys.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"merge_runs kernel launch failed: cudaError {err}")
     global LAUNCHES
     LAUNCHES += 1
     return out_k, out_v

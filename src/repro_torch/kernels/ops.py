@@ -2,6 +2,13 @@
 
 Each runs its Hopper kernel on CUDA tensors and its plain version
 (``ref.py``) on CPU tensors; nothing else chooses between the two.
+
+``merge_runs`` and ``preprocess_batch`` compute nothing the JAX package
+does not: ``merge_runs`` is the fold of ``merge_sorted`` over a fetch's
+arrival runs (``src/repro/serve/kvstore.py:452-462``) and the pairwise
+tree over a scan's streams (``src/repro/core/pushdown.py:462-470``);
+``preprocess_batch`` is the per-image loop over a minibatch's local share
+(``src/repro/data/offload_prep.py:120-127``). Each does it in one launch.
 """
 from __future__ import annotations
 
@@ -21,6 +28,21 @@ def merge_sorted(a_keys, a_vals, b_keys, b_vals):
     float ``+inf`` keys included. Ties take a first (stable). Returns
     (keys, vals) of length ``len(a) + len(b)``."""
     return _kv.merge_sorted(a_keys, a_vals, b_keys, b_vals)
+
+
+def merge_runs(keys, vals, offsets):
+    """Merge k sorted (key, payload) runs laid back to back, run j at
+    ``[offsets[j], offsets[j + 1])`` (k + 1 boundaries on the host), in one
+    launch. Ties go by run, then by position (stable), so the result is
+    that of folding ``merge_sorted`` over the runs in order."""
+    return _kv.merge_runs(keys, vals, offsets)
+
+
+def preprocess_batch(packed, desc, out, *, mean=None, std=None):
+    """``preprocess_image`` of every crop in ``packed`` (HWC uint8, back to
+    back, with its host table ``desc``: see ``preprocess.pack_crops``) into
+    its slot of the (n, S, S, C) float64 batch ``out``, in one launch."""
+    return _pp.preprocess_batch(packed, desc, out, mean=mean, std=std)
 
 
 def preprocess_image(img_chw, *, out_size=224, flip=False, mean=None, std=None, out=None):

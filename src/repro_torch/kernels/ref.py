@@ -73,6 +73,31 @@ def merge_sorted_ref(a_keys, a_vals, b_keys, b_vals):
     return keys[order], vals[order]
 
 
+def merge_runs_ref(keys, vals, offsets):
+    """The k-way merge of the ascending runs ``keys[offsets[j]:offsets[j+1]]``
+    by each key's rank, as the kernel computes it: element i of run r goes
+    to (i - offsets[r]) + the keys at most its own in the runs before r + the
+    keys below it in the runs after r (ties by run, then by position).
+    ``offsets`` is a CPU int64 tensor of k + 1 boundaries. Returns (keys,
+    vals)."""
+    off = offsets.tolist()
+    n, dev = keys.numel(), keys.device
+    sort_keys = keys.to(torch.int64) if keys.dtype == torch.uint32 else keys
+    lengths = torch.tensor([b - a for a, b in zip(off[:-1], off[1:])], device=dev)
+    run = torch.repeat_interleave(torch.arange(len(off) - 1, device=dev), lengths)
+    pos = torch.arange(n, device=dev) - torch.tensor(off[:-1], device=dev)[run]
+    for j, (a, b) in enumerate(zip(off[:-1], off[1:])):
+        if a == b:
+            continue
+        at_most = torch.searchsorted(sort_keys[a:b], sort_keys, right=True)
+        below = torch.searchsorted(sort_keys[a:b], sort_keys, right=False)
+        pos += torch.where(run > j, at_most, torch.where(run < j, below, 0))
+    out_k, out_v = torch.empty_like(keys), torch.empty_like(vals)
+    for dst, src in ((out_k, keys), (out_v, vals)):  # as raw 32-bit words
+        dst.view(torch.int32)[pos] = src.view(torch.int32)
+    return out_k, out_v
+
+
 # The prep path's normalisation constants, float32 as numpy holds them
 # (``data/preprocess.py``: float32 array times 255.0 stays float32).
 PREP_MEAN = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float32) * 255.0
@@ -117,3 +142,16 @@ def preprocess_image_ref(img_chw, *, out_size=224, flip=False, mean=None, std=No
     m = torch.as_tensor(mean, dtype=torch.float32).to(dev, torch.float64)
     sd = torch.as_tensor(std, dtype=torch.float32).to(dev, torch.float64)
     return (r - m[:, None, None]) / sd[:, None, None]
+
+
+def preprocess_batch_ref(packed, desc, out, *, mean=None, std=None):
+    """``preprocess_image_ref`` of every crop that a row of ``desc`` (byte
+    offset, h, w, C, flip, slot; a CPU int64 table) finds in the uint8
+    buffer ``packed``, HWC, written into its slot of the (n, S, S, C)
+    batch ``out``. Returns ``out``."""
+    S = out.shape[1]
+    for off, h, w, C, flip, slot in desc.tolist():
+        crop = packed[off:off + h * w * C].view(h, w, C).permute(2, 0, 1)
+        out[slot] = preprocess_image_ref(crop, out_size=S, flip=bool(flip), mean=mean,
+                                         std=std).permute(1, 2, 0)
+    return out

@@ -33,8 +33,8 @@ otherwise, and directly against the device (under scoped
 
 Fetched chunks complete out of order (streamed futures across targets);
 the assembly order is recovered by merging the completion log's ascending
-chunk-index runs with the port's merge kernel (``kernels.ops.merge_sorted``)
-on the store's device.
+chunk-index runs in one launch of the port's merge kernel
+(``kernels.ops.merge_runs``) on the store's device.
 """
 from __future__ import annotations
 
@@ -461,32 +461,24 @@ class KvCacheStore:
     def _assemble(self, arrivals: List[tuple]) -> bytes:
         """Reorder the completion log into chunk order. The log is a merge
         of ascending chunk-index runs (each target streams its batch in
-        order); split it back into those runs and fold them through the
-        merge kernel — keys are chunk indices, payloads are arrival
+        order); split it back into those runs and merge them in one launch
+        of the merge kernel — keys are chunk indices, payloads are arrival
         slots."""
         if not arrivals:
             return b""
-        datas = [d for _, d in arrivals]
-        runs: List[List[tuple]] = []
-        for slot, (idx, _) in enumerate(arrivals):
-            if runs and runs[-1][-1][0] < idx:
-                runs[-1].append((idx, slot))
-            else:
-                runs.append([(idx, slot)])
+        idx = np.fromiter((i for i, _ in arrivals), dtype=np.int32, count=len(arrivals))
+        # a run ends where the next index does not ascend
+        offsets = [0, *(np.flatnonzero(idx[1:] <= idx[:-1]) + 1).tolist(), len(idx)]
         with self._lock:
-            self.stats.merge_runs += len(runs)
-        if len(runs) == 1:
-            order = [slot for _, slot in runs[0]]
+            self.stats.merge_runs += len(offsets) - 1
+        if len(offsets) == 2:
+            order = range(len(idx))
         else:
-            def col(run, i):
-                return torch.tensor([p[i] for p in run], dtype=torch.int32,
-                                    device=self.device)
-
-            mk, mv = col(runs[0], 0), col(runs[0], 1)
-            for run in runs[1:]:
-                mk, mv = ops.merge_sorted(mk, mv, col(run, 0), col(run, 1))
+            slots = np.arange(len(idx), dtype=np.int32)
+            kv = torch.from_numpy(np.stack([idx, slots])).to(self.device)  # one copy
+            _, mv = ops.merge_runs(kv[0], kv[1], offsets)
             order = mv.tolist()
-        return b"".join(datas[slot] for slot in order)
+        return b"".join(arrivals[slot][1] for slot in order)
 
     # ----------------------------------------------------------- eviction
     def _stored_bytes_locked(self) -> int:

@@ -255,6 +255,102 @@ def test_merge_wrapper_checks():
     assert mk.to(torch.int64).tolist() == [1, 1, 3, 3, 2**32 - 2, 2**32 - 2]
 
 
+# ------------------------------------------------------ k-way merge
+def _runs(lengths, rng, hi, dtype=np.int32):
+    """Ascending runs of the given lengths, back to back, with their k + 1
+    offsets and payloads that name each element's place in the input."""
+    runs = [np.sort(rng.integers(0, hi, n)).astype(dtype) for n in lengths]
+    keys = np.concatenate(runs) if runs else np.zeros(0, dtype)
+    return keys, np.arange(len(keys), dtype=np.int32), np.cumsum([0, *lengths])
+
+
+def _fold(merge, keys, vals, offsets):
+    """The path's old merge: fold a two-run merge over the runs in order."""
+    mk, mv = keys[:offsets[1]], vals[:offsets[1]]
+    for a, b in zip(offsets[1:-1], offsets[2:]):
+        mk, mv = merge(mk, mv, keys[a:b], vals[a:b])
+    return mk, mv
+
+
+@pytest.mark.parametrize("lengths", [[5, 3], [40, 1, 17, 9], [1] * 60, [100, 0, 57, 0, 3]])
+def test_merge_runs_matches_pallas_fold(lengths):
+    """Unique keys: one k-way merge gives the fold of the JAX package's
+    ``merge_sorted`` (Pallas, interpret mode), key and payload."""
+    _need_jax()
+    rng = np.random.default_rng(sum(lengths))
+    keys = rng.permutation(4 * sum(lengths))[:sum(lengths)].astype(np.int32)
+    offsets = np.cumsum([0, *lengths])
+    for a, b in zip(offsets[:-1], offsets[1:]):
+        keys[a:b] = np.sort(keys[a:b])
+    vals = np.arange(len(keys), dtype=np.int32)
+    jk, jv = _fold(lambda *r: jops.merge_sorted(*(jnp.asarray(x) for x in r)),
+                   keys, vals, offsets)
+    tk, tv = ops.merge_runs(torch.from_numpy(keys), torch.from_numpy(vals), offsets)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def _inf_runs(rng):
+    runs = [np.append(np.sort(rng.random(n, dtype=np.float32)), [np.inf] * m)
+            for n, m in ((30, 1), (0, 2), (12, 0), (7, 3))]
+    runs[2][:5] = runs[0][:5]  # ties across runs
+    runs[2].sort()
+    keys = np.concatenate(runs).astype(np.float32)
+    return keys, np.arange(len(keys), dtype=np.int32), np.cumsum([0, *map(len, runs)])
+
+
+@pytest.mark.parametrize("case", ["ties", "empty_runs", "float_inf", "one_run", "900_of_one",
+                                  "uint32", "fetch_shape"])
+def test_merge_runs_matches_plain_fold(case):
+    """Payload for payload equal to folding the plain two-run merge over the
+    runs in order (ties by run, then position), where ties, empty runs and
+    ``+inf`` make the order matter."""
+    rng = np.random.default_rng(len(case))
+    if case == "ties":
+        keys, vals, off = _runs([50, 31, 64, 2, 40], rng, 8)
+    elif case == "empty_runs":
+        keys, vals, off = _runs([0, 9, 0, 0, 13, 0], rng, 5)
+    elif case == "float_inf":
+        keys, vals, off = _inf_runs(rng)
+    elif case == "one_run":
+        keys, vals, off = _runs([77], rng, 10)
+    elif case == "900_of_one":
+        keys, vals, off = _runs([1] * 900, rng, 300)
+    elif case == "uint32":
+        keys, vals, off = _runs([20, 33, 7], rng, 2**32 - 1, np.uint32)
+        keys[0] = 2**32 - 2
+        keys[:20].sort()
+    else:  # 900 chunk indices dealt out to 72 ascending runs, as a fetch sees them
+        idx = np.arange(900, dtype=np.int32)
+        keys = np.concatenate([idx[r::72] for r in range(72)])
+        vals, off = np.arange(900, dtype=np.int32), np.cumsum([0] + [len(idx[r::72])
+                                                                     for r in range(72)])
+    k, v = torch.from_numpy(keys), torch.from_numpy(vals)
+    gk, gv = ops.merge_runs(k, v, off)
+    wk, wv = _fold(ref.merge_sorted_ref, k, v, off)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    order = np.argsort(keys.astype(np.float64), kind="stable")
+    np.testing.assert_array_equal(gv.numpy(), vals[order])
+
+
+def test_merge_runs_wrapper_checks():
+    k = torch.arange(6, dtype=torch.int32)
+    for bad in ([0, 7], [1, 6], [0, 4, 2, 6], [0], torch.tensor([0, 6]).to("meta")):
+        with pytest.raises(ValueError):
+            ops.merge_runs(k, k, bad)
+    with pytest.raises(ValueError):
+        ops.merge_runs(k.to(torch.int64), k, [0, 6])
+    with pytest.raises(ValueError):
+        ops.merge_runs(k, k.to(torch.int16), [0, 6])
+    with pytest.raises(ValueError):
+        ops.merge_runs(k, k[:5], [0, 6])
+    before = kvmerge.LAUNCHES
+    mk, mv = ops.merge_runs(k[:0], k[:0], [0, 0, 0])
+    assert mk.numel() == 0 and kvmerge.LAUNCHES == before
+    mk, mv = ops.merge_runs(k, k, torch.tensor([0, 3, 6]))
+    assert mk.tolist() == [0, 1, 2, 3, 4, 5] and kvmerge.LAUNCHES == before
+
+
 # ------------------------------------------------------ on the card
 def _need_cuda():
     if not torch.cuda.is_available():
@@ -348,3 +444,42 @@ def test_merge_kernel_matches_plain_on_card(na, nb, dtype):
     torch.cuda.synchronize()
     assert kvmerge.LAUNCHES == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fetch_72", "900_of_one", "scan_4", "ties_empty", "float_inf",
+                                  "uint32", "one_run"])
+def test_merge_runs_kernel_matches_plain_on_card(case):
+    """The k-way kernel against its plain version, bit for bit, at the
+    fetch's shape (900 chunk indices in 72 runs, and in 900 runs of one),
+    the pushdown scan's (4 streams of about 50,000 keys tied on few
+    values) and at the edges."""
+    _need_cuda()
+    rng = np.random.default_rng(len(case))
+    if case == "fetch_72":
+        perm = rng.permutation(900)
+        cuts = np.sort(rng.choice(np.arange(1, 900), 71, replace=False))
+        runs = [np.sort(r) for r in np.split(perm, cuts)]
+        keys = np.concatenate(runs).astype(np.int32)
+        vals, off = np.arange(900, dtype=np.int32), np.cumsum([0, *map(len, runs)])
+    elif case == "900_of_one":
+        keys, vals, off = _runs([1] * 900, rng, 900)
+    elif case == "scan_4":
+        keys, vals, off = _runs([49_740, 50_780, 50_112, 50_368], rng, 3)
+    elif case == "ties_empty":
+        keys, vals, off = _runs([0, 300, 0, 1, 5000, 0, 17], rng, 40)
+    elif case == "float_inf":
+        keys, vals, off = _inf_runs(rng)
+    elif case == "uint32":
+        keys, vals, off = _runs([1000, 3, 2000], rng, 2**32 - 1, np.uint32)
+    else:
+        keys, vals, off = _runs([4097], rng, 100)
+    k, v = torch.from_numpy(keys).cuda(), torch.from_numpy(vals).cuda()
+    before = kvmerge.LAUNCHES
+    got = ops.merge_runs(k, v, off)
+    want = ref.merge_runs_ref(k, v, torch.as_tensor(off))
+    torch.cuda.synchronize()
+    assert kvmerge.LAUNCHES == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    order = np.argsort(keys.astype(np.float64), kind="stable")
+    np.testing.assert_array_equal(got[1].cpu().numpy(), vals[order])

@@ -22,6 +22,7 @@ from repro_torch.core.offloader import TaskOffloader, serve_engine
 from repro_torch.data import ingest, offload_prep
 from repro_torch.data.ingest import PrepPipeline, tokens_from_batch
 from repro_torch.data.offload_prep import OffloadPrep
+from repro_torch.data.preprocess import encode_image, synthetic_image
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import preprocess as kpp
 
@@ -35,6 +36,7 @@ try:  # the JAX reference; the machine with the card has no jax
     from repro.data import ingest as jingest
     from repro.data import offload_prep as joffload_prep
     from repro.data.preprocess import _MEAN, _STD, bilinear_resize
+    from repro.data.preprocess import preprocess_image as jpreprocess_image
     from repro.kernels import ops as jops
 except ImportError:
     jnp = None
@@ -127,6 +129,97 @@ def test_normalisation_constants_match_numpy():
 def test_preprocess_wrapper_refuses(bad):
     with pytest.raises(ValueError):
         bad()
+
+
+# ------------------------------------------------------ the batch kernel
+def _encoded(n, seed, max_side):
+    """n encoded images of the synthetic corpus (sides up to ``max_side``)
+    and a 1 x 1 image, whose only crop is its pixel."""
+    imgs = [synthetic_image(seed * 1000 + i, min_side=1, max_side=max_side) for i in range(n)]
+    imgs.append(np.random.RandomState(seed).randint(0, 256, (1, 1, 3)).astype(np.uint8))
+    return [encode_image(im) for im in imgs]
+
+
+@pytest.mark.parametrize("out,max_side", [(16, 40), (224, 96)])
+def test_preprocess_batch_bit_equal_to_numpy(out, max_side):
+    """OffloadPrep's packing, table and one ``preprocess_batch`` over a
+    share written into scattered slots: each image has the bytes of the
+    storage node's numpy ``preprocess_image``, and the other slots are
+    untouched."""
+    _need_jax()
+    bufs = _encoded(9, out, max_side)
+    slots = np.random.RandomState(out).permutation(len(bufs) + 3)[:len(bufs)]
+    batch = torch.zeros((len(bufs) + 3, out, out, 3), dtype=torch.float64)
+    prep = OffloadPrep(None, None, out_size=out, device="cpu")
+    prep._preprocess_into([(b, 77 + i, int(s)) for i, (b, s) in enumerate(zip(bufs, slots))],
+                          batch)
+    for i, (b, s) in enumerate(zip(bufs, slots)):
+        assert _bits_equal(batch[s], jpreprocess_image(b, 77 + i, out))
+    rest = sorted(set(range(len(batch))) - set(slots.tolist()))
+    assert len(rest) == 3 and not batch[rest].any()
+
+
+def test_pack_crops_layout():
+    rng = np.random.RandomState(2)
+    big = rng.randint(0, 256, (20, 30, 3)).astype(np.uint8)
+    crops = [big[3:9, 4:14], big[:1, :1], big[5:20, 0:30]]
+    packed, desc = kpp.pack_crops(crops, [True, False, True], [2, 0, 5], "cpu")
+    assert packed.dtype == torch.uint8 and packed.device.type == "cpu"
+    assert np.array_equal(packed.numpy(), np.concatenate([c.reshape(-1) for c in crops]))
+    assert desc.dtype == torch.int64 and desc.tolist() == [
+        [0, 6, 10, 3, 1, 2], [180, 1, 1, 3, 0, 0], [183, 15, 30, 3, 1, 5]]
+    empty, none = kpp.pack_crops([], [], [], "cpu")
+    assert empty.numel() == 0 and none.shape == (0, len(kpp.DESC_COLUMNS))
+
+
+def test_preprocess_batch_equals_preprocess_image():
+    """Slot by slot what ``preprocess_image`` gives for the crop seen as CHW,
+    with the default and with given normalisation constants."""
+    rng = np.random.RandomState(4)
+    crops = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in ((7, 9), (30, 2))]
+    packed, desc = kpp.pack_crops(crops, [False, True], [1, 0], "cpu")
+    for mean, std in ((None, None), ([1.0, 2.0, 3.0], [4.0, 5.0, 6.0])):
+        out = torch.zeros((2, 12, 12, 3), dtype=torch.float64)
+        assert ops.preprocess_batch(packed, desc, out, mean=mean, std=std) is out
+        for crop, flip, slot in zip(crops, (False, True), (1, 0)):
+            want = ops.preprocess_image(torch.from_numpy(crop).permute(2, 0, 1), out_size=12,
+                                        flip=flip, mean=mean, std=std)
+            assert torch.equal(out[slot], want.permute(1, 2, 0))
+
+
+def _bad_batch(kind):
+    crops = [np.zeros((4, 5, 3), np.uint8), np.zeros((2, 2, 3), np.uint8)]
+    packed, desc = kpp.pack_crops(crops, [0, 1], [0, 1], "cpu")
+    out = torch.empty((2, 8, 8, 3), dtype=torch.float64)
+    col = dict(zip(kpp.DESC_COLUMNS, range(len(kpp.DESC_COLUMNS))))
+    bad_row = {"offset": 61, "h": 0, "w": 3, "C": 4, "flip": 2, "slot": 2}
+    if kind in bad_row:
+        desc[1, col[kind]] = bad_row[kind]
+    elif kind == "same_slot":
+        desc[1, col["slot"]] = 0
+    elif kind == "desc_dtype":
+        desc = desc.to(torch.int32)
+    elif kind == "desc_shape":
+        desc = desc[:, :5]
+    elif kind == "packed_dtype":
+        packed = packed.to(torch.int16)
+    elif kind == "out_dtype":
+        out = out.to(torch.float32)
+    elif kind == "out_strided":
+        out = torch.empty((2, 8, 3, 8), dtype=torch.float64).permute(0, 1, 3, 2)
+    elif kind == "out_channels":
+        out = torch.empty((2, 8, 8, 5), dtype=torch.float64)
+    elif kind == "mean":
+        return lambda: ops.preprocess_batch(packed, desc, out, mean=[1.0])
+    return lambda: ops.preprocess_batch(packed, desc, out)
+
+
+@pytest.mark.parametrize("kind", ["offset", "h", "w", "C", "flip", "slot", "same_slot",
+                                  "desc_dtype", "desc_shape", "packed_dtype", "out_dtype",
+                                  "out_strided", "out_channels", "mean"])
+def test_preprocess_batch_refuses(kind):
+    with pytest.raises(ValueError):
+        _bad_batch(kind)()
 
 
 # ------------------------------------------------------ planes for both
@@ -312,7 +405,42 @@ def test_offload_prep_on_card_equals_host_numpy():
     before = kpp.LAUNCHES
     got = prep.preprocess_minibatch(paths, epoch_seed=2)
     assert got.is_cuda and got.dtype == torch.float64
-    assert kpp.LAUNCHES - before == prep.stats["local"] == 6
+    assert kpp.LAUNCHES - before == 1 and prep.stats["local"] == 6  # one launch a share
     want = np.stack([offload_prep.preprocess_image(fs.read(p), prep._image_seed(2, i), 32)
                      for i, p in enumerate(paths)])
     assert _bits_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", [224, 16])
+def test_preprocess_batch_kernel_bit_equal_on_card(out):
+    """One launch over crops of the corpus's sizes (sides 1 to 512), a 1 x 1
+    crop and both flips, into scattered slots: bit for bit the plain
+    version's and the per-image kernel's, other slots untouched."""
+    _need_cuda()
+    from repro_torch.data.preprocess import decode_image, random_crop_params
+
+    crops, flips = [], []
+    for i, buf in enumerate(_encoded(40, 3, 512)):
+        img = decode_image(buf)
+        rng = np.random.RandomState(i)
+        y, x, ch, cw = random_crop_params(rng, *img.shape[:2])
+        crops.append(img[y:y + ch, x:x + cw])
+        flips.append(bool(rng.rand() < 0.5))
+    flips[-1] = True  # the 1 x 1 crop, flipped
+    slots = np.random.RandomState(5).permutation(len(crops) + 4)[:len(crops)].tolist()
+    packed, desc = kpp.pack_crops(crops, flips, slots, "cuda")
+    got = torch.zeros((len(crops) + 4, out, out, 3), dtype=torch.float64, device="cuda")
+    want = torch.zeros_like(got)
+    before = kpp.LAUNCHES
+    ops.preprocess_batch(packed, desc, got)
+    assert kpp.LAUNCHES == before + 1
+    ref.preprocess_batch_ref(packed, desc, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    for crop, flip, slot in zip(crops, flips, slots):
+        one = ops.preprocess_image(torch.from_numpy(crop).cuda().permute(2, 0, 1),
+                                   out_size=out, flip=flip)
+        assert torch.equal(got[slot].view(torch.int64), one.permute(1, 2, 0).view(torch.int64))
+    rest = sorted(set(range(len(got))) - set(slots))
+    assert len(rest) == 4 and not got[rest].any()
