@@ -47,15 +47,36 @@ exits non-zero without the final line:
                900 chunk indices in its runs and in 900 runs of one, the
                scan's and the distinct-prefix streams) against its plain
                version, one stable sort and, at the fetch, the two-run fold
-               it replaces; each bit for bit.
+               it replaces; each bit for bit;
+  9. train_small — one AdamW ``make_train_step`` step of qwen3-1.7b:smoke
+               (f32) at S = 2,304, past the flash threshold, on the card
+               against the same step on the CPU: loss, grad_norm, every
+               param and moment; the flash kernel must not launch (the
+               train path runs the differentiable chunked twin);
+ 10. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
+               width with prep ingest: 12 steps, a checkpoint into OffloadDB
+               every 4, a crash after step 8, recover, restore, resume; the
+               resumed losses bit for bit those of an uninterrupted run, the
+               restored ingest state the one saved, every minibatch the
+               crash run consumed bit for bit the host numpy golden (out
+               32), one preprocess launch per minibatch, no merge launch;
+ 11. train     — qwen3-1.7b at full width (28 layers, bf16 compute over f32
+               params, remat) at S 4,096, batch 2: the first three AdamW
+               steps of ``for_config``'s schedule on one batch (finite,
+               falling loss), then one at microbatches 2.
+
+The train phases run under ``torch.use_deterministic_algorithms(True)``,
+with ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -63,6 +84,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS is deterministic only with a fixed workspace, set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them,
 # f64 outside them, HBM bandwidth
@@ -80,6 +103,13 @@ MAX_LEN = PROMPT + STEPS
 PREP_IMAGES, PREP_BATCH, PREP_OUT, PREP_SEED = 1024, 256, 224, 5
 # pushdown path: fig21's corpus shape (240-byte values) at 200,000 keys
 PUSHDOWN_KEYS = 200_000
+# train paths: the chunked twin's first length; train_e2e.py's defaults
+# (batch 8, seq 128, prep ingest at out 32) for 12 steps, a checkpoint every
+# 4, a crash after 8; qwen3 at the train_4k cell's length, batch 2 (the
+# cell's global batch of 256 cut to 2)
+TRAIN_SMALL_S = 2304
+E2E_STEPS, E2E_CKPT_EVERY, E2E_KILL_AT = 12, 4, 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 3
 
 
 def emit(phase: str, **kw) -> None:
@@ -1024,6 +1054,285 @@ def phase_pushdown():
                       "scan_distinct_prefixes": distinct_merges.calls[0][0]}
 
 
+# ------------------------------------------------------------ phases 9-11
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the block: an op
+    with no deterministic kernel raises, naming itself."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _batch_on(b, device):
+    import numpy as np
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in b.items()}
+
+
+def _max_err(got, want) -> float:
+    return (got.detach().cpu().double() - want.detach().double()).abs().max().item()
+
+
+def phase_train_small():
+    """One AdamW ``make_train_step`` step of qwen3-1.7b:smoke in f32 at S =
+    2,304 (the chunked twin's branch) on the card against the same step on
+    the CPU from the same params: loss and grad_norm within a relative
+    1e-4 (f32 sums in another order), AdamW's m (0.1 × the clipped
+    gradient) and v within 1e-4 of each leaf's largest value, every param
+    within lr / 10 (a lost gradient moves a param by lr × sign(g) on one
+    side only). The flash kernel must not launch: it has no backward."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.config import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optim
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.tree import tree_flatten_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-1.7b:smoke").with_(compute_dtype=torch.float32)
+    model = build_model(cfg)
+    lr = 3e-4
+    opt = optim.adamw(lr=lr)
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    b = TokenPipeline(cfg.vocab_size, 2, TRAIN_SMALL_S).next_batch()
+    step = make_train_step(model, opt)
+    states, metrics, launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        state = init_state(model, opt, params=tree_map(lambda t: t.to(dev, copy=True), params))
+        f0 = fa.LAUNCHES
+        with deterministic():
+            states[dev], m = step(state, _batch_on(b, dev))
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+        launches[dev] = fa.LAUNCHES - f0
+    torch.cuda.synchronize()
+    g, c = metrics["cuda"], metrics["cpu"]
+    check(launches["cuda"] == 0, f"the train step launched flash {launches['cuda']} times")
+    for k in ("loss", "grad_norm", "ce", "zloss"):
+        check(math.isfinite(g[k]) and abs(g[k] - c[k]) <= 1e-4 * abs(c[k]),
+              f"train_small {k}: card {g[k]} CPU {c[k]}")
+    errs = {}
+    for (path, a), (_, w) in zip(tree_flatten_with_path(states["cuda"]),
+                                 tree_flatten_with_path(states["cpu"])):
+        name = "/".join(map(str, path))
+        err = _max_err(a, w)
+        tol = lr / 10 if path[0] == "params" else 1e-4 * w.abs().max().item()
+        check(err <= tol, f"train_small {name}: card and CPU differ by {err} > {tol}")
+        errs[name] = err
+    worst = {k: max(e for n, e in errs.items() if n.startswith(k))
+             for k in ("params", "opt/m", "opt/v")}
+    emit("train_small", model=cfg.name, seq=TRAIN_SMALL_S, batch=2, metrics_card=g,
+         metrics_cpu=c, leaves=len(errs), max_abs_err=worst,
+         flash_launches=launches["cuda"], tol={"loss": "rel 1e-4", "params": lr / 10,
+                                               "moments": "1e-4 x leaf max"})
+    return launches["cuda"]
+
+
+class _PrepBatchRecord:
+    """While in use, keeps a host copy of every minibatch that a
+    ``PrepPipeline`` delivers, with what the host numpy golden of that
+    minibatch needs: its images' bytes and per-image seeds and which of its
+    images the card preprocessed. The delivery itself is the path's, so the
+    kernel's count is untouched. ``hold`` then compares each minibatch with
+    the golden, bit for bit."""
+
+    def __enter__(self):
+        from repro_torch.data.ingest import PrepPipeline
+
+        self.batches, self._cls, deliver = [], PrepPipeline, PrepPipeline.__next__
+
+        def recorded(pipe):
+            x = deliver(pipe)
+            st, b = pipe.state, pipe.state.batch
+            # the cursor counts the epoch's delivered minibatches, 0 after its last
+            epoch, idx = ((st.epoch - 1, pipe.batches_per_epoch - 1) if st.cursor == 0
+                          else (st.epoch, st.cursor - 1))
+            order, seed = pipe._epoch_order(epoch), pipe._batch_seed(epoch, idx)
+            prep = pipe.prep
+            self.batches.append({
+                "got": x.cpu().numpy(), "is_cuda": x.is_cuda, "out": prep.out_size,
+                "local": prep.plan_shares(b)[1],
+                "images": [(prep.fs.read(pipe.paths[int(order[idx * b + i])]),
+                            prep._image_seed(seed, i)) for i in range(b)]})
+            return x
+
+        self._deliver, PrepPipeline.__next__ = deliver, recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__next__ = self._deliver
+
+    def hold(self) -> dict:
+        import numpy as np
+
+        from repro_torch.data.preprocess import preprocess_image
+
+        differing, local_differing = [], []
+        for n, r in enumerate(self.batches):
+            want = np.stack([preprocess_image(raw, seed, r["out"]) for raw, seed in r["images"]])
+            got = r["got"]
+            check(r["is_cuda"] and got.dtype == np.float64 and got.shape == want.shape,
+                  f"prep minibatch {n} is {got.dtype} {got.shape} (cuda {r['is_cuda']}), "
+                  f"the golden {want.shape}")
+            diff = got.view(np.int64) != want.view(np.int64)
+            differing.append(int(diff.sum()))
+            local_differing.append(int(diff[r["local"]].sum()))
+        check(all(d == 0 for d in differing),
+              f"prep minibatches differ from the host numpy golden in {differing} elements "
+              f"({local_differing} of them in the card's shares)")
+        return {"minibatches_held": len(self.batches),
+                "shape": list(self.batches[0]["got"].shape),
+                "card_images_per_minibatch": len(self.batches[0]["local"]),
+                "golden_differing_elements": differing}
+
+
+def phase_train_e2e():
+    """``train.e2e.run`` at paper-lm-100m, full width, prep ingest: the
+    crash run (checkpoints every 4 steps, crash after 8, recover, restore,
+    resume) with every count at 0 just before it, then an uninterrupted
+    run from the same init, both on the card. Every minibatch the crash run
+    consumed (out 32, crops of at most 128 px, six of eight images on the
+    card) is held against the host numpy golden, bit for bit."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kvmerge
+    from repro_torch.kernels import preprocess as kpp
+    from repro_torch.train import e2e
+
+    def quiet(*_):
+        pass
+
+    kw = dict(steps=E2E_STEPS, ingest="prep", device="cuda", log=quiet)
+    with deterministic():
+        with _PrepBatchRecord() as record:
+            fa.LAUNCHES = kvmerge.LAUNCHES = kpp.LAUNCHES = 0
+            t0 = time.perf_counter()
+            crash = e2e.run(ckpt_every=E2E_CKPT_EVERY, kill_at=E2E_KILL_AT, **kw)
+            crash_s = time.perf_counter() - t0
+        launches = {"preprocess": kpp.LAUNCHES, "flash_attention": fa.LAUNCHES,
+                    "merge": kvmerge.LAUNCHES}
+        t0 = time.perf_counter()
+        whole = e2e.run(ckpt_every=0, kill_at=E2E_STEPS, **kw)
+        whole_s = time.perf_counter() - t0
+    del crash["state"], whole["state"]
+    torch.cuda.empty_cache()
+
+    want = dict(whole["losses"])
+    check(len(want) == E2E_STEPS and all(math.isfinite(x) for x in want.values()),
+          f"uninterrupted losses {whole['losses']}")
+    rs = crash["restored_step"]
+    check(rs is not None and 0 < rs <= E2E_KILL_AT, f"restored at step {rs}")
+    resumed = [[s, x] for s, x in crash["losses"][E2E_KILL_AT:]]
+    check([s for s, _ in resumed] == list(range(rs + 1, E2E_STEPS + 1)),
+          f"resumed steps {[s for s, _ in resumed]}")
+    differ = [s for s, x in resumed if x != want[s]]
+    check(not differ, f"resumed losses differ from the uninterrupted run's at steps {differ}")
+    saved = [j for s, j in crash["saved_pipe"] if s == rs][0]
+    check(crash["restored_pipe"] == saved, "the restored ingest state differs from the saved")
+    local_per_batch = 8 - int(8 / 3)
+    prep = {k: sum(st[k] for st in crash["prep_stats"]) for k in crash["prep_stats"][0]}
+    shares = prep["local"] // local_per_batch
+    check(prep["rejected"] == prep["rerouted"] == 0 and prep["local"] % local_per_batch == 0
+          and launches["preprocess"] == shares >= len(crash["losses"]),
+          f"preprocess launched {launches['preprocess']} times for {shares} local shares "
+          f"({prep})")
+    check(launches["merge"] == 0 and launches["flash_attention"] == 0,
+          f"the train path launched {launches}")
+    check(len(record.batches) == len(crash["losses"]),
+          f"{len(record.batches)} minibatches recorded for {len(crash['losses'])} steps")
+    held = record.hold()
+    emit("train_e2e", model=crash["arch"], n_params=crash["n_params"], steps=E2E_STEPS,
+         ckpt_every=E2E_CKPT_EVERY, kill_at=E2E_KILL_AT, volume_bytes=e2e.VOLUME_BLOCKS * 4096,
+         restored_step=rs, losses=crash["losses"], uninterrupted_losses=whole["losses"],
+         resumed_bit_equal=True, restored_cursor=json.loads(crash["restored_pipe"])["cursor"],
+         restored_epoch=json.loads(crash["restored_pipe"])["epoch"],
+         step_ms=crash["step_ms"], uninterrupted_step_ms=whole["step_ms"],
+         checkpoints=crash["checkpoints"], restore_ms=crash["restore_ms"],
+         memtable_bytes=crash["memtable_bytes"], cache_blocks=crash["cache_blocks"],
+         prep_golden=held, db_stats=crash["db_stats"], rpc_bytes=crash["rpc_bytes"],
+         prep_stats=prep,
+         launches=launches, local_shares=shares, crash_run_s=crash_s,
+         uninterrupted_run_s=whole_s)
+    return launches
+
+
+def phase_train():
+    """qwen3-1.7b at full width: 28 layers, bf16 compute over f32 params,
+    remat per layer, S 4,096, batch 2 (the train_4k cell's global batch of
+    256 cut to 2), the first three AdamW steps of ``for_config``'s
+    10,000-step schedule on one TokenPipeline batch, the loss after them,
+    then one step at microbatches 2."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.config import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optim
+    from repro_torch.train.step import init_state, make_eval_step, make_train_step
+
+    cfg = get_config("qwen3-1.7b")
+    model = build_model(cfg)
+    opt = optim.for_config(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, opt, torch.Generator("cuda").manual_seed(0))
+    batch = _batch_on(TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ).next_batch(),
+                      "cuda")
+    step = make_train_step(model, opt)
+    f0 = fa.LAUNCHES
+    losses, norms, ms = [], [], []
+    with deterministic():
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        after = float(make_eval_step(model)(state["params"], batch)["loss"])
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m2 = make_train_step(model, opt, microbatches=2)(state, batch)
+        torch.cuda.synchronize()
+        mb2_ms = (time.perf_counter() - t0) * 1e3
+    mb2_loss = float(m2["loss"])
+    flash = fa.LAUNCHES - f0
+    check(all(math.isfinite(x) for x in losses + norms + [after, mb2_loss]),
+          f"non-finite loss or grad_norm: {losses} {norms} {after} {mb2_loss}")
+    # the schedule's warmup starts at lr 0 (as JAX's): step 1 moves nothing,
+    # so step 2 sees the same params and loss; every later update lowers it
+    check(losses[1] == losses[0], f"step 1 (lr 0) changed the loss: {losses}")
+    falls = losses[1:] + [after]
+    check(all(b < a for a, b in zip(falls, falls[1:])), f"the loss did not fall: {losses} "
+          f"then {after}")
+    check(abs(mb2_loss - after) <= 1e-3, f"microbatches 2 loss {mb2_loss} vs {after}")
+    check(flash == 0, f"the train steps launched flash {flash} times")
+    steady = sum(ms[1:]) / len(ms[1:])
+    emit("train", model=cfg.name, n_params=model.n_params(), layers=cfg.num_layers,
+         seq=TRAIN_SEQ, batch=TRAIN_BATCH, remat=cfg.remat, compute_dtype=str(cfg.compute_dtype),
+         losses=losses, loss_after=after, grad_norms=norms, step_ms=ms,
+         first_step_ms=ms[0], steady_step_ms=steady,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3),
+         max_memory_allocated=peak, microbatches2_loss=mb2_loss, microbatches2_ms=mb2_ms,
+         max_memory_allocated_with_mb2=torch.cuda.max_memory_allocated(),
+         flash_launches=flash, cut="global batch 256 -> 2 sequences")
+    del state
+    torch.cuda.empty_cache()
+    return flash
+
+
 def main() -> int:
     import torch
 
@@ -1042,11 +1351,17 @@ def main() -> int:
     merges = time_merge_at_path(nchunks, nruns, scans)
     emit("merge_at_path", cases=merges)
     mg_rec = merges["fetch"]
+    small_flash = phase_train_small()
+    e2e_launches = phase_train_e2e()
+    train_flash = phase_train()
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:29",
          "launches": launches["flash_attention"], "max_abs_err": fa_rec["max_abs_err"],
+         "launches_by_path": {"serve": launches["flash_attention"], "train_small": small_flash,
+                              "train_e2e": e2e_launches["flash_attention"],
+                              "train": train_flash},
          "rel_err": fa_rec["rel_err"], "row_rel_err": fa_rec["row_rel_err"],
          "ms": fa_rec["ms"], "plain_ms": fa_rec["plain_ms"], "bound_ms": fa_rec["bound_ms"],
          "bound_by": fa_rec["bound_by"], "library_ms": fa_rec["library_ms"],
@@ -1056,13 +1371,16 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvmerge.py:24",
          "launches": launches["merge"], "max_abs_err": mg_rec["max_abs_err"],
          "payload_mismatches": mg_rec["payload_mismatches"],
-         "launches_by_path": {"serve": launches["merge"], "pushdown": pushdown_launches},
+         "launches_by_path": {"serve": launches["merge"], "pushdown": pushdown_launches,
+                              "train_e2e": e2e_launches["merge"]},
          "ms": mg_rec["ms"], "plain_ms": mg_rec["plain_ms"], "bound_ms": mg_rec["bound_ms"],
          "bound_by": mg_rec["bound_by"], "library_ms": mg_rec["library_ms"]},
         {"name": "preprocess", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/preprocess.cu",
          "replaces": "src/repro/kernels/preprocess.py:41",
          "launches": prep_launches["preprocess"], "max_abs_err": pp_rec["max_abs_err"],
+         "launches_by_path": {"prep": prep_launches["preprocess"],
+                              "train_e2e": e2e_launches["preprocess"]},
          "differing_elements": pp_rec["differing_elements"],
          "ms": pp_rec["ms"], "plain_ms": pp_rec["plain_ms"], "bound_ms": pp_rec["bound_ms"],
          "bound_by": pp_rec["bound_by"], "library_ms": pp_rec["library_ms"]},

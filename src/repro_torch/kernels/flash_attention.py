@@ -15,7 +15,11 @@ f32 kernel walks the same strides with plain loads. A dim of size 1 is
 never stepped, and is given a stride of 16 bytes, as TMA needs.
 
 A CPU tensor takes the plain version (``ref.flash_attention_ref``); a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. The kernel is a forward only, as the
+Pallas kernel is (no ``custom_vjp``): its output has no gradient, so a
+call while autograd records through q, k or v is refused with a
+ValueError on either device. The model's train path runs the
+differentiable twin ``models.layers._flash_attention_qchunked`` instead.
 """
 from __future__ import annotations
 
@@ -85,6 +89,11 @@ def flash_attention(q, k, v, *, causal=True, softcap=0.0):
     """GQA flash attention in the model layout: q (B,Sq,KV,G,D), k/v
     (B,Sk,KV,D) → (B,Sq,KV,G,D) in q's dtype. Causal masking assumes q and
     k both start at position 0; Sq and Sk may be any lengths."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise ValueError("flash_attention is a forward-only kernel: q, k or v "
+                         "requires grad; train through "
+                         "models.layers._flash_attention_qchunked")
     B, Sq, KV, G, D = q.shape
     if k.shape[0] != B or k.shape[2:] != (KV, D) or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "

@@ -19,7 +19,8 @@ from repro_torch.kernels import preprocess as _pp
 
 def flash_attention(q, k, v, *, causal=True, softcap=0.0):
     """GQA flash attention. q (B,S,KV,G,D), k/v (B,S,KV,D), the model's
-    native layout, read by the kernel in place."""
+    native layout, read by the kernel in place. Forward only: raises a
+    ValueError while autograd records through q, k or v."""
     return _fa.flash_attention(q, k, v, causal=causal, softcap=softcap)
 
 

@@ -49,7 +49,7 @@ class ModelConfig:
     compute_dtype: Any = torch.bfloat16
     # layer layout knobs (kept for parity with the JAX configs)
     scan_layers: bool = False  # params stacked per period: {"scan": ...}
-    remat: str = "block"  # none | block | full (train only; no train yet)
+    remat: str = "block"  # none | block | full (train mode only; block == full)
     sub_quadratic: bool = False
 
     def __post_init__(self):

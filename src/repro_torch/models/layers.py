@@ -2,11 +2,13 @@
 attention (train/prefill/decode), the swiglu MLP. The slice ports what
 qwen3 uses; other norm and MLP kinds raise ``NotImplementedError``.
 
-Attention has two paths, as in the JAX package:
+Attention has three paths:
   * einsum attention (plain torch) for seq <= FLASH_THRESHOLD and all decode;
-  * the Hopper flash-attention kernel (``kernels.ops.flash_attention``) for
-    self-attention above it, where the JAX model runs its jnp twin
-    ``_flash_attention_qchunked``.
+  * above it, in train mode or while autograd records, the chunked
+    online-softmax twin ``_flash_attention_qchunked`` (plain torch, each
+    KV-block step rematerialised), which is what the JAX model runs there;
+  * above it otherwise (prefill), the Hopper flash-attention kernel
+    (``kernels.ops.flash_attention``), which is forward only.
 """
 from __future__ import annotations
 
@@ -15,12 +17,24 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.schema import ParamSpec
 
-FLASH_THRESHOLD = 2048  # einsum attention up to here; flash kernel above
+FLASH_THRESHOLD = 2048  # einsum attention up to here; chunked twin or kernel above
+FLASH_BLOCK_KV = 512
+FLASH_BLOCK_Q = 4096  # q-chunk above this Sq (bounds the (Sq, block_kv) logits)
 NEG_INF = -1e30
+
+
+def remat(fn, *args):
+    """``fn(*args)``; while autograd records, under ``torch.utils.checkpoint``
+    (non-reentrant), so that the backward recomputes what ``fn`` computed
+    inside instead of keeping it: the counterpart of ``jax.checkpoint``."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 # ------------------------------------------------------------------ norms
@@ -121,6 +135,68 @@ def _einsum_attention(qg, k, v, *, causal, softcap, kv_len=None):
     return torch.einsum("bkgqs,bskd->bqkgd", p, v)
 
 
+def _pick_block(n: int, want: int) -> int:
+    """Largest divisor of n that is <= want (block-size fallback)."""
+    if n % want == 0:
+        return want
+    for b in range(want, 0, -1):
+        if n % b == 0:
+            return b
+    return n
+
+
+def _kv_block_step(m, l, acc, qg, kc, vc, qpos, kpos, causal, softcap):
+    """One online-softmax step over a KV block: (m, l, acc) (B,KV,G,Sq[,D])
+    in f32 → the same after the keys ``kc`` at positions ``kpos``."""
+    lg = torch.einsum("bqkgd,bskd->bkgqs", qg, kc).float()
+    lg = _softcap(lg * (1.0 / math.sqrt(qg.shape[-1])), softcap)
+    if causal:
+        lg = lg.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+    mnew = torch.maximum(m, lg.amax(-1))
+    p = torch.exp(lg - mnew[..., None])
+    corr = torch.exp(m - mnew)
+    lnew = l * corr + p.sum(-1)
+    accn = acc * corr[..., None] + torch.einsum(
+        "bkgqs,bskd->bkgqd", p.to(vc.dtype), vc).float()
+    return mnew, lnew, accn
+
+
+def _flash_attention_chunked(qg, k, v, *, causal, softcap, block_kv=FLASH_BLOCK_KV,
+                             q_offset=0):
+    """Online softmax over KV blocks (port of ``_flash_attention_jnp``); each
+    block step rematerialised, so the backward keeps no block's f32 logits.
+    qg (B,Sq,KV,G,D) at positions ``q_offset…``, k/v (B,Sk,KV,D)."""
+    B, Sq, KV, G, D = qg.shape
+    Sk = k.shape[1]
+    block_kv = _pick_block(Sk, block_kv)
+    qpos = q_offset + torch.arange(Sq, device=qg.device)
+    m = torch.full((B, KV, G, Sq), -math.inf, dtype=torch.float32, device=qg.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=qg.device)
+    acc = torch.zeros((B, KV, G, Sq, D), dtype=torch.float32, device=qg.device)
+    for s0 in range(0, Sk, block_kv):
+        kpos = s0 + torch.arange(block_kv, device=qg.device)
+        m, l, acc = remat(_kv_block_step, m, l, acc, qg, k[:, s0:s0 + block_kv],
+                          v[:, s0:s0 + block_kv], qpos, kpos, causal, softcap)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(qg.dtype)  # (B,Sq,KV,G,D)
+
+
+def _flash_attention_qchunked(qg, k, v, *, causal, softcap, block_q=FLASH_BLOCK_Q,
+                              block_kv=FLASH_BLOCK_KV):
+    """Double-chunked flash twin: q blocks of ``block_q`` rows bound the
+    logits working set to (block_q, block_kv) regardless of Sq. Plain,
+    differentiable torch: the attention of the train path."""
+    Sq = qg.shape[1]
+    if Sq <= block_q:
+        return _flash_attention_chunked(qg, k, v, causal=causal, softcap=softcap,
+                                        block_kv=block_kv)
+    block_q = _pick_block(Sq, block_q)
+    return torch.cat([
+        _flash_attention_chunked(qg[:, q0:q0 + block_q], k, v, causal=causal,
+                                 softcap=softcap, block_kv=block_kv, q_offset=q0)
+        for q0 in range(0, Sq, block_q)], dim=1)
+
+
 def apply_attention(
     p: dict,
     cfg,
@@ -171,7 +247,12 @@ def apply_attention(
                 "v": vc,
                 "len": torch.full((B,), S, dtype=torch.int32, device=x.device),
             }
-        if S > FLASH_THRESHOLD:
+        records = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                               or v.requires_grad)
+        if S > FLASH_THRESHOLD and (mode == "train" or records):
+            out = _flash_attention_qchunked(q, k, v, causal=True,
+                                            softcap=cfg.attn_logit_softcap)
+        elif S > FLASH_THRESHOLD:
             out = ops.flash_attention(q, k, v, causal=True,
                                       softcap=cfg.attn_logit_softcap)
         else:

@@ -1,9 +1,15 @@
 """Top-level model (port of ``src/repro/models/model.py``): embeddings,
-stack, head; ``apply`` in three modes.
+stack, head, loss; ``apply`` in three modes.
 
   * ``train``   — tokens (B,S) → logits (B,S,V)
   * ``prefill`` — builds the decode cache, returns last-position logits
   * ``decode``  — one token per sequence against the cache
+
+``train_loss`` runs the stack in train mode and the head and
+cross-entropy over sequence chunks (``chunked_lm_loss``), never holding
+the (B, S, V) logits. Only the dense, text-only model is ported: the
+encoder–decoder and vision frontends and the MoE aux losses come with the
+model-families slice and raise ``NotImplementedError``.
 
 Parameters are plain nested dicts/tuples of tensors with the JAX package's
 tree structure (``models.bridge`` converts a JAX tree into one).
@@ -16,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import apply_norm, norm_spec
+from repro_torch.models.layers import apply_norm, norm_spec, remat
 from repro_torch.models.schema import ParamSpec, init_tree, param_count
 from repro_torch.tree import tree_map
 
@@ -25,7 +31,7 @@ class Model:
     def __init__(self, cfg):
         if cfg.encoder_decoder or cfg.frontend != "none":
             raise NotImplementedError("encoder–decoder and frontend models "
-                                      "are not ported yet")
+                                      "come with the model-families slice")
         self.cfg = cfg
 
     # ------------------------------------------------------------- params
@@ -107,6 +113,68 @@ class Model:
             logits = self._head(params, x)
         return logits, new_cache
 
+    def train_loss(self, params: dict, batch: Dict[str, torch.Tensor], *,
+                   chunk: int = 1024):
+        """Memory-lean train loss: the stack in train mode, then the head and
+        cross-entropy over rematerialised sequence chunks. batch: tokens and
+        labels (B,S) int, optional loss_mask (B,S). Returns (loss, metrics)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        x, _ = T.apply_stack(params["stack"], self.cfg, x, positions=positions,
+                             mode="train")
+        return chunked_lm_loss(self, params, x, batch["labels"], batch.get("loss_mask"),
+                               chunk=chunk)
+
 
 def build_model(cfg) -> Model:
     return Model(cfg)
+
+
+# ------------------------------------------------------------------- loss
+def _label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The logit of each label in f32: the value JAX's one-hot einsum
+    picks, gathered instead."""
+    return logits.gather(-1, labels.long()[..., None])[..., 0].float()
+
+
+def chunked_lm_loss(model: Model, params: dict, x: torch.Tensor, labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None, *, chunk: int = 1024,
+                    z_weight: float = 1e-4):
+    """Head + cross-entropy over sequence chunks, each rematerialised: the
+    (B, chunk, V) logits exist only transiently. z-loss z_weight·lse²;
+    S % chunk != 0 falls back to one chunk. Returns (loss, {ce, zloss})."""
+    B, S, _ = x.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    if S % chunk != 0:
+        chunk = S  # fallback: single chunk
+
+    def one(xx, ll, mm):
+        logits = model._head(params, xx)  # (B,chunk,V)
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        ce = ((lse - _label_logits(logits, ll)) * mm).sum()
+        zz = ((lse ** 2) * mm).sum()
+        return ce, zz, mm.sum()
+
+    parts = [remat(one, x[:, c:c + chunk], labels[:, c:c + chunk],
+                   mask[:, c:c + chunk].float()) for c in range(0, S, chunk)]
+    ces, zzs, cnts = (torch.stack(t) for t in zip(*parts))
+    denom = torch.clamp_min(cnts.sum(), 1.0)
+    loss = ces.sum() / denom
+    zloss = z_weight * zzs.sum() / denom
+    return loss + zloss, {"ce": loss, "zloss": zloss}
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None, z_weight: float = 1e-4):
+    """Cross-entropy of (B,S,V) logits at labels (B,S), with the z-loss;
+    mask (B,S) {0,1}. Returns (loss, {ce, zloss})."""
+    lse = torch.logsumexp(logits.float(), dim=-1)  # (B,S)
+    ce = lse - _label_logits(logits, labels)
+    mask = torch.ones_like(ce) if mask is None else mask.float()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = (ce * mask).sum() / denom
+    zloss = z_weight * ((lse ** 2) * mask).sum() / denom
+    return loss + zloss, {"ce": loss, "zloss": zloss}

@@ -6,6 +6,12 @@ MoE interleave). Both parameter layouts of the JAX package are accepted:
 axis, and ``{"unroll": (layer, …)}``; caches follow the same layout. The
 stacked layout runs as a Python loop over the periods.
 
+In train mode with ``cfg.remat != "none"`` each period runs under
+``torch.utils.checkpoint`` (``layers.remat``), as JAX wraps it in
+``jax.checkpoint``. JAX's ``"block"`` policy saves only values named
+``remat_save``, and no value of the model carries that name, so it saves
+nothing inside a period: ``"block"`` and ``"full"`` are the same here.
+
 This slice ports attention blocks with a dense MLP. MoE, mamba, xLSTM,
 cross-attention and encoder–decoder stacks raise ``NotImplementedError``.
 """
@@ -18,12 +24,12 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.schema import ParamSpec
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _unsupported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (attention blocks "
-                               "with a dense MLP only)")
+    return NotImplementedError(f"{what} comes with the model-families slice "
+                               "(attention blocks with a dense MLP only so far)")
 
 
 # ----------------------------------------------------------------- layout
@@ -153,17 +159,27 @@ def apply_stack(params: dict, cfg, x: torch.Tensor, *, positions, caches=None,
     stacked layout a decode step updates the stacked cache in place."""
     layout = period_layout(cfg)
     want_cache = mode in ("prefill", "decode")
-    kw = dict(positions=positions, mode=mode, max_len=max_len)
+    use_remat = cfg.remat != "none" and mode == "train"
+
+    def run_period(pp, x, pc):
+        def fn(pp, x):
+            return _apply_period(pp, cfg, layout, x, positions=positions, caches=pc,
+                                 mode=mode, max_len=max_len)
+        return L.remat(fn, pp, x) if use_remat else fn(pp, x)
 
     if "scan" in params:
         stacked = params["scan"]
-        n = tree_leaves(stacked)[0].shape[0]
         pc_stacked = caches["scan"] if caches is not None else None
+        # one unbind per stacked leaf: its backward builds the stacked
+        # gradient once, where a[i] in every period would build a zero
+        # gradient of the whole leaf n times
+        per_leaf = [a.unbind(0) for a in tree_leaves(stacked)]
+        n = len(per_leaf[0])
         per_period = []
         for i in range(n):
-            pp = tree_map(lambda a, i=i: a[i], stacked)
+            pp = tree_unflatten(stacked, [ts[i] for ts in per_leaf])
             pc = tree_map(lambda a, i=i: a[i], pc_stacked) if pc_stacked else None
-            x, ncs = _apply_period(pp, cfg, layout, x, caches=pc, **kw)
+            x, ncs = run_period(pp, x, pc)
             if pc is not None:
                 tree_map(_write_back, pc, ncs)
             elif want_cache:
@@ -181,7 +197,6 @@ def apply_stack(params: dict, cfg, x: torch.Tensor, *, positions, caches=None,
         pp = per_layers[pi * len(layout): (pi + 1) * len(layout)]
         pc = (caches["unroll"][pi * len(layout): (pi + 1) * len(layout)]
               if caches is not None else None)
-        x, ncs = _apply_period(tuple(pp), cfg, layout, x,
-                               caches=tuple(pc) if pc else None, **kw)
+        x, ncs = run_period(tuple(pp), x, tuple(pc) if pc else None)
         ncs_all.extend(ncs)
     return x, ({"unroll": tuple(ncs_all)} if want_cache else None)
