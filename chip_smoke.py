@@ -13,8 +13,9 @@ exits non-zero without the final line:
                with its time, the plain version's and a library yardstick's
                (the preprocess kernels bit for bit); flash at the prefill
                shape, at S = 2,049 (the first length on the flash path) and
-               8,192, non-causal, softcapped, ragged and in f32, each with
-               its time over SDPA's; the two-run merge at edges and 2^20
+               8,192, at the archs path's GQA groups of 16 and 4,
+               non-causal, softcapped, ragged and in f32, each with its
+               time over SDPA's; the two-run merge at edges and 2^20
                keys; the per-image preprocess at edges, and the batch
                preprocess over one minibatch's local share (171 crops of
                the corpus) beside the per-image loop it replaces;
@@ -28,14 +29,31 @@ exits non-zero without the final line:
                prefill's bit for bit, and the path must launch both kernels:
                flash once a layer per prefill, the k-way merge once a fetch
                that arrived in more than one run;
-  6. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
+  6. failover — the main path's model, prompts and new tokens on the main
+               path's volume shape behind a ``ClusterRouter`` over a
+               ``FaultyFabric``: cold; one engine killed, the warm run that
+               meets it fails; ``probe()`` quarantines it within
+               ``max_probe_failures`` rounds; warm over the 3 survivors, one
+               of them slowed, through one merge launch; the initiator dies
+               mid-put of a second prompt's cache;
+               ``standby_takeover`` fences exactly that orphan and the
+               standby serves the first prompt warm. Tokens equal the main
+               phase's every time, fetched caches the prefill's bit for bit,
+               no lease left;
+  7. archs   — glm4-9b, granite-3-8b and mistral-nemo-12b at full width and
+               depth (f32 params, bf16 compute, random weights), one after
+               the other: in memory, and glm4-9b also cold and warm through
+               the main path's store; flash once a layer per prefill (GQA
+               groups of 16 and 4), tokens equal across runs, logits finite,
+               ``n_params`` the JAX package's;
+  8. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
                synthetic corpus (sides 64-512) on a volume behind one
                storage engine: a third of each 256-image minibatch
                preprocessed by the engine's numpy stub, the rest on the card
                by one batch preprocess launch a minibatch; every batch bit
                for bit equal to a host numpy golden, before and after a
                checkpoint into OffloadDB, a remount and a resume;
-  7. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
+  9. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
                keys of fig21's shape, a ~10 % filter: the pushdown scan,
                merged on the card by one k-way merge launch, equals the
                local scan, and its merge equals the plain merge bit for
@@ -43,24 +61,24 @@ exits non-zero without the final line:
                merge there orders nothing: streams of the scan's lengths
                with distinct prefixes go through ``merge_row_streams`` on
                the card against a plain host merge;
-  8. merge_at_path — the k-way merge timed at the path's shapes (a fetch's
+ 10. merge_at_path — the k-way merge timed at the path's shapes (a fetch's
                900 chunk indices in its runs and in 900 runs of one, the
                scan's and the distinct-prefix streams) against its plain
                version, one stable sort and, at the fetch, the two-run fold
                it replaces; each bit for bit;
-  9. train_small — one AdamW ``make_train_step`` step of qwen3-1.7b:smoke
+ 11. train_small — one AdamW ``make_train_step`` step of qwen3-1.7b:smoke
                (f32) at S = 2,304, past the flash threshold, on the card
                against the same step on the CPU: loss, grad_norm, every
                param and moment; the flash kernel must not launch (the
                train path runs the differentiable chunked twin);
- 10. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
+ 12. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
                width with prep ingest: 12 steps, a checkpoint into OffloadDB
                every 4, a crash after step 8, recover, restore, resume; the
                resumed losses bit for bit those of an uninterrupted run, the
                restored ingest state the one saved, every minibatch the
                crash run consumed bit for bit the host numpy golden (out
                32), one preprocess launch per minibatch, no merge launch;
- 11. train     — qwen3-1.7b at full width (28 layers, bf16 compute over f32
+ 13. train     — qwen3-1.7b at full width (28 layers, bf16 compute over f32
                params, remat) at S 4,096, batch 2: the first three AdamW
                steps of ``for_config``'s schedule on one batch (finite,
                falling loss), then one at microbatches 2.
@@ -68,12 +86,14 @@ exits non-zero without the final line:
 The train phases run under ``torch.use_deterministic_algorithms(True)``,
 with ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
-line, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Then a ``phase_seconds`` line, the ``{"kernels": [...]}`` line, the
+``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -110,6 +130,17 @@ PUSHDOWN_KEYS = 200_000
 TRAIN_SMALL_S = 2304
 E2E_STEPS, E2E_CKPT_EVERY, E2E_KILL_AT = 12, 4, 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 3
+# failover path: the main path's model, prompts and store shape on a
+# FaultyFabric from a fixed seed; one of its 4 engines is killed, and one
+# survivor straggles (each delivery delayed), so that the fetch over the
+# survivors arrives out of order whatever the threads' timing and the
+# merge has runs to order
+FAILOVER_SEED, FAILOVER_KILL = 16, "storage1"
+FAILOVER_STRAGGLER, FAILOVER_DELAY_S = "storage3", 0.002
+# archs path: the other dense archs at full width and depth, each with the
+# JAX package's n_params() (src/repro/models, computed on the CPU)
+ARCHS = {"glm4-9b": 9_399_767_040, "granite-3-8b": 8_372_187_136,
+         "mistral-nemo-12b": 12_247_782_400}
 
 
 def emit(phase: str, **kw) -> None:
@@ -260,6 +291,10 @@ def phase_kernels():
         ("s8192_bf16", 1, 8192, 8, 2, 128, torch.bfloat16, True, 0.0),
         ("noncausal_bf16", 1, 1500, 8, 2, 128, torch.bfloat16, False, 0.0),
         ("softcap_bf16", 1, 1024, 2, 4, 128, torch.bfloat16, True, 30.0),
+        # the archs path's prefill shapes: glm4-9b's 32 heads over 2 KV heads
+        # (groups of 16), granite-3-8b's and mistral-nemo-12b's over 8 (of 4)
+        ("glm4_g16_bf16", BATCH, PROMPT, 2, 16, 128, torch.bfloat16, True, 0.0),
+        ("kv8_g4_bf16", BATCH, PROMPT, 8, 4, 128, torch.bfloat16, True, 0.0),
     ]
 
     def flash_case(name, B, S, KV, G, D, dt, causal, cap):
@@ -297,7 +332,10 @@ def phase_kernels():
     for case in cases:
         flash_case(*case)
     emit("kernels_flash", cases=results)
-    fa_rec = results["prefill_bf16"]
+    fa_rec = dict(results["prefill_bf16"])
+    fa_rec["arch_shapes"] = {name: {k: results[name][k] for k in (
+        "shape", "max_abs_err", "rel_err", "row_rel_err", "tol", "ms", "plain_ms",
+        "library_ms", "bound_ms", "bound_by")} for name in ("glm4_g16_bf16", "kv8_g4_bf16")}
 
     merged = {}
     g = torch.Generator("cuda").manual_seed(7)
@@ -537,7 +575,7 @@ def _preprocess_batch_case(mean, std):
     return rec
 
 
-# ------------------------------------------------------------ phase 4
+# ------------------------------------------------------------ phases 4-5
 def phase_small():
     """Smoke width on the card (kernels) against the CPU (plain versions),
     at a prompt past the flash threshold."""
@@ -611,17 +649,15 @@ def main_path_model():
     return cfg, model, params, prompt
 
 
-def serving_store():
-    """The main path's KV-cache store on the card: 1 MiB chunks on a volume
-    of 2^19 blocks with 4 stripes behind 4 storage engines, reached through
-    a least-outstanding offloader. ``scripts/profile_serving.py`` traces a
-    fetch from the same."""
+def _kv_plane(fabric):
+    """The main path's storage plane on ``fabric``: a volume of 2^19 blocks
+    with 4 stripes behind 4 storage engines that serve the KV stubs, and a
+    least-outstanding offloader over them. Returns (fs, engines, off)."""
     from repro_torch.core import (AcceptAll, BlockDevice, OffloadEngine, OffloadFS,
-                                  RpcFabric, TaskOffloader, serve_engine)
-    from repro_torch.serve import KvCacheStore, register_kv_stubs
+                                  TaskOffloader, serve_engine)
+    from repro_torch.serve import register_kv_stubs
 
     fs = OffloadFS(BlockDevice(num_blocks=1 << 19), node="init0", shards=4)
-    fabric = RpcFabric()
     engines = []
     for t in range(4):
         eng = OffloadEngine(fs, node=f"storage{t}")
@@ -630,6 +666,17 @@ def serving_store():
         engines.append(eng)
     off = TaskOffloader(fs, fabric, node="init0", targets=[e.node for e in engines],
                         lb_policy="least_outstanding")
+    return fs, engines, off
+
+
+def serving_store():
+    """The main path's KV-cache store on the card: 1 MiB chunks on
+    ``_kv_plane``. ``scripts/profile_serving.py`` traces a fetch from the
+    same."""
+    from repro_torch.core import RpcFabric
+    from repro_torch.serve import KvCacheStore
+
+    fs, _, off = _kv_plane(RpcFabric())
     return KvCacheStore(fs, off=off, chunk_blocks=256)
 
 
@@ -749,10 +796,348 @@ def phase_main():
          fetched_cache_bit_equal=fetched,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          tokens=cold.tolist())
-    return launches, entry.nchunks, max(2, max(runs_per_fetch))
+    return launches, entry.nchunks, max(2, max(runs_per_fetch)), cold
 
 
 # ------------------------------------------------------------ phase 6
+def failover_plane():
+    """The failover path's plane: ``_kv_plane`` on a ``FaultyFabric`` with a
+    fixed seed, under ``ClusterRouter(off, max_probe_failures=2)``, and the
+    KV-cache store on the router. Returns (fs, fabric, engines, router,
+    store)."""
+    from repro_torch.core import ClusterRouter, FaultyFabric
+    from repro_torch.serve import KvCacheStore
+
+    fabric = FaultyFabric(seed=FAILOVER_SEED)
+    fs, engines, off = _kv_plane(fabric)
+    router = ClusterRouter(off, max_probe_failures=2)
+    return fs, fabric, engines, router, KvCacheStore(fs, router=router, chunk_blocks=256)
+
+
+def _wait_no_leases(fs, timeout_s: float = 30.0) -> int:
+    """A routed chunk's lease is released just after its future resolves,
+    on the fabric's worker thread: wait for the last release; the count
+    left."""
+    deadline = time.perf_counter() + timeout_s
+    while fs._leases and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    return len(fs._leases)
+
+
+def failover_run(model, params, prompt, prompt2, want, plane):
+    """The failover sequence on ``plane`` (``failover_plane()``'s tuple):
+    cold through the router; one engine killed and the warm run that meets
+    it; ``probe()`` to quarantine; warm over the 3 survivors, one of them
+    a straggler; a mid-put
+    crash of the initiator on a second prompt's cache, on the
+    initiator-local plane where that failpoint lives, leaving its write
+    lease orphaned; ``standby_takeover`` and a warm attach from the
+    standby. Every run's tokens must equal ``want``, every fetched cache
+    the cold prefill's, bit for bit. Returns the record."""
+    import torch
+
+    from repro_torch.core import standby_takeover
+    from repro_torch.core.router import QUARANTINED
+    from repro_torch.core.rpc import RpcError
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kvmerge
+    from repro_torch.serve import KvCacheStore, ServingCrash, attach_store, generate
+    from repro_torch.tree import tree_leaves, tree_map
+
+    fs, fabric, engines, router, store = plane
+    timed = _Timed()
+    put, fetch = timed.wrap("put", store.put), timed.wrap("fetch", store.fetch)
+    prefilled, fetched = [], []
+
+    def put_spy(tokens, cache, **kw):
+        prefilled.append(cache)
+        return put(tokens, cache, **kw)
+
+    def fetch_spy(tokens):
+        cache = fetch(tokens)
+        same = tree_map(lambda a, b: a.shape == b.shape and a.dtype == b.dtype
+                        and torch.equal(_bits(a), _bits(b)), prefilled[0], cache)
+        fetched.append(all(tree_leaves(same)))
+        return cache
+
+    store.put, store.fetch = put_spy, fetch_spy
+    runs = []
+    assemble = store._assemble
+
+    def assemble_spy(arrivals):
+        r0 = store.stats.merge_runs
+        out = assemble(arrivals)
+        runs.append(store.stats.merge_runs - r0)
+        return out
+
+    store._assemble = assemble_spy
+    by_step, launches = {}, {"flash_attention": 0, "merge": 0}
+
+    def drive(label, kv_store, *, meets_dead=False):
+        """One ``generate`` through ``kv_store``; with ``meets_dead`` it must
+        fail, and the record keeps what it raised."""
+        fa0, mg0, a0 = fa.LAUNCHES, kvmerge.LAUNCHES, len(runs)
+        t0 = time.perf_counter()
+        rec = {}
+        if meets_dead:
+            try:
+                generate(model, params, prompt, steps=STEPS, max_len=MAX_LEN,
+                         kv_store=kv_store)
+            except RpcError as e:
+                rec["raised"] = f"{type(e).__name__}: {e}"
+            check("raised" in rec, f"failover {label}: the run over a dead engine did not fail")
+        else:
+            toks = generate(model, params, prompt, steps=STEPS, max_len=MAX_LEN,
+                            kv_store=kv_store)
+        torch.cuda.synchronize()
+        phases = timed.take()
+        rec.update({
+            "total_ms": (time.perf_counter() - t0) * 1e3,
+            "phase_ms": {k: [t for lab, t in phases if lab == k] for k in ("put", "fetch")},
+            "flash_launches": fa.LAUNCHES - fa0, "merge_launches": kvmerge.LAUNCHES - mg0,
+            "runs_per_fetch": runs[a0:], "leases_after": _wait_no_leases(fs)})
+        launches["flash_attention"] += rec["flash_launches"]
+        launches["merge"] += rec["merge_launches"]
+        by_step[label] = rec
+        if not meets_dead:
+            check(torch.equal(toks.cpu(), want),
+                  f"failover {label}: tokens differ from the main phase's")
+            check(rec["merge_launches"] == sum(1 for r in rec["runs_per_fetch"] if r > 1),
+                  f"failover {label}: {rec['merge_launches']} merge launches for fetches in "
+                  f"{rec['runs_per_fetch']} runs")
+        return rec
+
+    cfg = model.cfg
+    try:
+        cold = drive("cold", store)
+        check(cold["flash_launches"] == cfg.num_layers, f"cold prefill launched flash "
+                                                        f"{cold['flash_launches']} times")
+        dead = FAILOVER_KILL
+        fabric.kill(dead)
+        drive("kill", store, meets_dead=True)
+        rounds = 0
+        while router.members[dead].state != QUARANTINED and rounds < 10:
+            router.probe()
+            rounds += 1
+        check(router.members[dead].state == QUARANTINED
+              and rounds <= router.max_probe_failures,
+              f"{dead} not quarantined after {rounds} probe rounds")
+        served = {e.node: e.tasks_run for e in engines}
+        fabric.delay(FAILOVER_STRAGGLER, FAILOVER_DELAY_S, methods={"submit_task"})
+        warm = drive("survivors", store)
+        fabric.clear_faults(FAILOVER_STRAGGLER)
+        check(warm["flash_launches"] == 0, "the warm run over the survivors ran a prefill")
+        check(warm["merge_launches"] == 1, f"the survivors' fetch with a straggler came in "
+                                           f"{warm['runs_per_fetch']} runs, no merge")
+        by_engine = {e.node: e.tasks_run - served[e.node] for e in engines}
+        check(by_engine[dead] == 0 and all(n > 0 for e, n in by_engine.items() if e != dead),
+              f"the survivors' fetch landed {by_engine}")
+        check(len(prefilled) == 1 and len(fetched) == 2 and all(fetched),
+              f"a fetched cache differs from the prefill's: {fetched}")
+        del prefilled[:]
+
+        # the prefill initiator dies mid-put of a second prompt's cache
+        fa0 = fa.LAUNCHES
+        _, cache2 = model.apply(params, {"tokens": prompt2}, mode="prefill", max_len=MAX_LEN)
+        orphan_flash = fa.LAUNCHES - fa0
+        launches["flash_attention"] += orphan_flash
+        check(orphan_flash == cfg.num_layers, f"the second prompt's prefill launched flash "
+                                              f"{orphan_flash} times")
+        local = KvCacheStore(fs, chunk_blocks=256)
+        t0 = time.perf_counter()
+        try:
+            local.put(prompt2, cache2, failpoint="mid_put")
+            check(False, "the mid_put failpoint did not fire")
+        except ServingCrash:
+            pass
+        orphan_ms = (time.perf_counter() - t0) * 1e3
+        del cache2
+        torch.cuda.empty_cache()
+        orphans = sorted(ls.task_id for ls in fs._leases.values())
+        check(len(orphans) == 1, f"the crash left {len(orphans)} leases, want 1")
+
+        t0 = time.perf_counter()
+        fs2, fenced = standby_takeover(fs.dev, node="decode0", shards=4)
+        takeover_ms = (time.perf_counter() - t0) * 1e3
+        check(sorted(fenced) == orphans and not fs2._leases,
+              f"takeover fenced {fenced}, the orphans were {orphans}")
+        store2 = attach_store(fs2, chunk_blocks=256)
+        check(store2.contains(prompt) and not store2.contains(prompt2),
+              "the standby's catalog is not the committed one")
+        store2.fetch = timed.wrap("fetch", store2.fetch)
+        fa0, t0 = fa.LAUNCHES, time.perf_counter()
+        toks = generate(model, params, prompt, steps=STEPS, max_len=MAX_LEN, kv_store=store2)
+        torch.cuda.synchronize()
+        standby = {"total_ms": (time.perf_counter() - t0) * 1e3,
+                   "phase_ms": {"fetch": [t for _, t in timed.take()]},
+                   "flash_launches": fa.LAUNCHES - fa0, "fetches": store2.stats.fetches,
+                   "leases_after": len(fs2._leases)}
+        launches["flash_attention"] += standby["flash_launches"]
+        check(torch.equal(toks.cpu(), want), "the standby's tokens differ from the main phase's")
+        check(standby["flash_launches"] == 0 and standby["fetches"] == 1,
+              f"the standby ran a prefill or fetched {standby['fetches']} times")
+        by_step["standby"] = standby
+    finally:
+        router.stop_heartbeat()
+    leases = {k: r["leases_after"] for k, r in by_step.items()}
+    check(all(n == 0 for n in leases.values()), f"leases left outstanding: {leases}")
+    return {"killed": dead, "straggler": [FAILOVER_STRAGGLER, FAILOVER_DELAY_S],
+            "probe_rounds_to_quarantine": rounds,
+            "max_probe_failures": router.max_probe_failures, "router_stats": {
+                "probes": router.stats.probes, "probe_failures": router.stats.probe_failures,
+                "quarantined": router.stats.quarantined,
+                "dispatched": router.stats.dispatched},
+            "fabric_injected": dict(fabric.injected), "survivor_tasks": by_engine,
+            "orphan_put_ms": orphan_ms, "orphans": orphans, "fenced": sorted(fenced),
+            "takeover_ms": takeover_ms, "leases_after": leases, "launches": launches,
+            "fetched_cache_bit_equal": True, "tokens_equal_main": True, "by_step": by_step}
+
+
+def phase_failover(want):
+    """The main path's model, prompts and new tokens through the failover
+    plane (``failover_run``): the tokens of every run must be the main
+    phase's cold tokens ``want``."""
+    import torch
+
+    cfg, model, params, prompt = main_path_model()
+    prompt2 = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), dtype=torch.int32,
+                            device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+    torch.cuda.reset_peak_memory_stats()
+    rec = failover_run(model, params, prompt, prompt2, torch.as_tensor(want),
+                       failover_plane())
+    emit("failover", model=cfg.name, batch=BATCH, prompt=PROMPT, steps=STEPS,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), **rec)
+    return rec["launches"]
+
+
+# ------------------------------------------------------------ phase 7
+def arch_run(cfg, model, params, prompt, store=None):
+    """One arch at ``cfg``: in memory, and with ``store`` cold and warm;
+    tokens in range and equal across the runs, the prefill's last-position
+    and every decode step's logits finite, flash once a layer per prefill,
+    the merge once a fetch that arrived in more than one run. Returns the
+    record."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kvmerge
+    from repro_torch.serve import generate
+
+    timed = _Timed()
+    apply = timed.wrap(lambda *a, **kw: kw.get("mode", "train"), model.apply)
+    finite = []
+
+    def apply_spy(*a, **kw):
+        logits, cache = apply(*a, **kw)
+        finite.append(bool(torch.isfinite(logits[:, -1].float()).all()))
+        return logits, cache
+
+    model.apply = apply_spy
+    if store is not None:
+        store.put, store.fetch = timed.wrap("put", store.put), timed.wrap("fetch", store.fetch)
+    runs, launches = {}, {"flash_attention": 0, "merge": 0}
+    labels = ["in_memory"] + (["cold", "warm"] if store is not None else [])
+    for label in labels:
+        fa0, mg0 = fa.LAUNCHES, kvmerge.LAUNCHES
+        r0, f0 = (store.stats.merge_runs, store.stats.fetches) if store else (0, 0)
+        t0 = time.perf_counter()
+        toks = generate(model, params, prompt, steps=STEPS, max_len=MAX_LEN,
+                        kv_store=None if label == "in_memory" else store)
+        torch.cuda.synchronize()
+        phases = timed.take()
+        ms = {k: sum(t for lab, t in phases if lab == k)
+              for k in ("prefill", "put", "fetch", "decode")}
+        n_dec = sum(1 for lab, _ in phases if lab == "decode")
+        rec = {"total_ms": (time.perf_counter() - t0) * 1e3, "prefill_ms": ms["prefill"],
+               "put_ms": ms["put"], "fetch_ms": ms["fetch"], "decode_ms": ms["decode"],
+               "decode_steps": n_dec,
+               "decode_tok_per_s": BATCH * n_dec / (ms["decode"] / 1e3),
+               "flash_launches": fa.LAUNCHES - fa0, "merge_launches": kvmerge.LAUNCHES - mg0,
+               "tokens": toks.cpu()}
+        if store is not None:
+            rec["fetches"] = store.stats.fetches - f0
+            rec["merge_runs"] = store.stats.merge_runs - r0
+        launches["flash_attention"] += rec["flash_launches"]
+        launches["merge"] += rec["merge_launches"]
+        runs[label] = rec
+    del model.apply
+    want = runs["in_memory"].pop("tokens")
+    check(want.shape == (BATCH, STEPS) and bool(((want >= 0) & (want < cfg.vocab_size)).all()),
+          f"{cfg.name}: tokens out of range")
+    check(all(finite), f"{cfg.name}: non-finite logits in {finite.count(False)} of "
+                       f"{len(finite)} calls")
+    for label in labels[1:]:
+        check(torch.equal(runs[label].pop("tokens"), want),
+              f"{cfg.name}: {label} tokens differ from the in-memory tokens")
+    for label in ("in_memory", "cold"):
+        if label in runs:
+            check(runs[label]["flash_launches"] == cfg.num_layers,
+                  f"{cfg.name} {label}: flash launched {runs[label]['flash_launches']} "
+                  f"times, want {cfg.num_layers}")
+    if store is not None:
+        check(runs["warm"]["flash_launches"] == 0, f"{cfg.name}: the warm run ran a prefill")
+        for label in ("cold", "warm"):
+            r = runs[label]
+            check(r["fetches"] == 1 and r["merge_launches"] == int(r["merge_runs"] > 1),
+                  f"{cfg.name} {label}: {r['merge_launches']} merge launches for a fetch in "
+                  f"{r['merge_runs']} runs")
+    return {"runs": runs, "launches": launches, "tokens": want.tolist(),
+            "finite_logit_calls": len(finite)}
+
+
+def phase_archs():
+    """glm4-9b, granite-3-8b and mistral-nemo-12b at full width and depth,
+    one after the other (each freed before the next): f32 params, bf16
+    compute, random weights from seed 0, BATCH prompts of PROMPT tokens
+    from seed 1, STEPS new tokens in memory; glm4-9b also cold and warm
+    through the main path's store (``serving_store``). ``n_params`` must
+    be the JAX package's."""
+    import torch
+
+    from repro_torch.models.config import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    out, launches = {}, {"flash_attention": 0, "merge": 0}
+    for name, n_params in ARCHS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(name)
+        model = build_model(cfg)
+        check(model.n_params() == n_params,
+              f"{name}: n_params {model.n_params()}, the JAX package's {n_params}")
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator("cuda").manual_seed(0))
+        prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), dtype=torch.int32,
+                               device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        store = serving_store() if name == "glm4-9b" else None
+        rec = arch_run(cfg, model, params, prompt, store)
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        out[name] = {
+            "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+            "rotary_pct": cfg.rotary_pct, "vocab": cfg.vocab_size, "n_params": n_params,
+            "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+            "init_s": init_s, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "cache_bytes": store.stats.put_bytes if store else None, **rec}
+        emit("arch", model=name, **out[name])
+        del model, params, prompt, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("archs", batch=BATCH, prompt=PROMPT, steps=STEPS, launches=launches,
+         n_params={k: v["n_params"] for k, v in out.items()},
+         prefill_ms={k: v["runs"]["in_memory"]["prefill_ms"] for k, v in out.items()},
+         decode_tok_per_s={k: v["runs"]["in_memory"]["decode_tok_per_s"]
+                           for k, v in out.items()},
+         max_memory_allocated={k: v["max_memory_allocated"] for k, v in out.items()})
+    return launches
+
+
+# ------------------------------------------------------------ phase 8
 def _prep_plane(dev=None):
     """A volume of 2^17 blocks behind one storage engine that serves
     ``stub_preprocess`` (and OffloadDB's stubs); with ``dev`` it remounts
@@ -909,7 +1294,7 @@ def phase_prep():
     return launches
 
 
-# ------------------------------------------------------------ phase 7
+# ------------------------------------------------------------ phase 9
 class _MergeRecord:
     """While in use, records the input and the result of every
     ``ops.merge_runs`` call; the call itself is the path's, so the kernel's
@@ -1054,7 +1439,7 @@ def phase_pushdown():
                       "scan_distinct_prefixes": distinct_merges.calls[0][0]}
 
 
-# ------------------------------------------------------------ phases 9-11
+# ------------------------------------------------------------ phases 11-13
 @contextlib.contextmanager
 def deterministic():
     """``torch.use_deterministic_algorithms(True)`` for the block: an op
@@ -1341,37 +1726,53 @@ def main() -> int:
     import repro_torch.kernels.build  # noqa: F401  (the port must be here)
 
     info = phase_device()
-    phase_build()
-    fa_rec = phase_kernels()
-    pp_rec = phase_kernels_preprocess()
-    phase_small()
-    launches, nchunks, nruns = phase_main()
-    prep_launches = phase_prep()
-    pushdown_launches, scans = phase_pushdown()
-    merges = time_merge_at_path(nchunks, nruns, scans)
+    seconds = {}
+
+    def timed_phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed_phase("build", phase_build)
+    fa_rec = timed_phase("kernels", phase_kernels)
+    pp_rec = timed_phase("kernels_preprocess", phase_kernels_preprocess)
+    timed_phase("small", phase_small)
+    launches, nchunks, nruns, main_tokens = timed_phase("main", phase_main)
+    failover_launches = timed_phase("failover", phase_failover, main_tokens.cpu())
+    arch_launches = timed_phase("archs", phase_archs)
+    prep_launches = timed_phase("prep", phase_prep)
+    pushdown_launches, scans = timed_phase("pushdown", phase_pushdown)
+    merges = timed_phase("merge_at_path", time_merge_at_path, nchunks, nruns, scans)
     emit("merge_at_path", cases=merges)
     mg_rec = merges["fetch"]
-    small_flash = phase_train_small()
-    e2e_launches = phase_train_e2e()
-    train_flash = phase_train()
+    small_flash = timed_phase("train_small", phase_train_small)
+    e2e_launches = timed_phase("train_e2e", phase_train_e2e)
+    train_flash = timed_phase("train", phase_train)
+    emit("phase_seconds", **seconds)
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:29",
          "launches": launches["flash_attention"], "max_abs_err": fa_rec["max_abs_err"],
-         "launches_by_path": {"serve": launches["flash_attention"], "train_small": small_flash,
+         "launches_by_path": {"serve": launches["flash_attention"],
+                              "failover": failover_launches["flash_attention"],
+                              "archs": arch_launches["flash_attention"],
+                              "train_small": small_flash,
                               "train_e2e": e2e_launches["flash_attention"],
                               "train": train_flash},
          "rel_err": fa_rec["rel_err"], "row_rel_err": fa_rec["row_rel_err"],
          "ms": fa_rec["ms"], "plain_ms": fa_rec["plain_ms"], "bound_ms": fa_rec["bound_ms"],
          "bound_by": fa_rec["bound_by"], "library_ms": fa_rec["library_ms"],
-         "ms_over_library": fa_rec["ms_over_library"]},
+         "ms_over_library": fa_rec["ms_over_library"], "arch_shapes": fa_rec["arch_shapes"]},
         {"name": "merge", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/merge.cu",
          "replaces": "src/repro/kernels/kvmerge.py:24",
          "launches": launches["merge"], "max_abs_err": mg_rec["max_abs_err"],
          "payload_mismatches": mg_rec["payload_mismatches"],
-         "launches_by_path": {"serve": launches["merge"], "pushdown": pushdown_launches,
+         "launches_by_path": {"serve": launches["merge"],
+                              "failover": failover_launches["merge"],
+                              "archs": arch_launches["merge"], "pushdown": pushdown_launches,
                               "train_e2e": e2e_launches["merge"]},
          "ms": mg_rec["ms"], "plain_ms": mg_rec["plain_ms"], "bound_ms": mg_rec["bound_ms"],
          "bound_by": mg_rec["bound_by"], "library_ms": mg_rec["library_ms"]},

@@ -17,10 +17,16 @@ from repro_torch.kernels import kvmerge as _kv
 from repro_torch.kernels import preprocess as _pp
 
 
-def flash_attention(q, k, v, *, causal=True, softcap=0.0):
+def flash_attention(q, k, v, *, causal=True, softcap=0.0, block_q=256, block_kv=256):
     """GQA flash attention. q (B,S,KV,G,D), k/v (B,S,KV,D), the model's
     native layout, read by the kernel in place. Forward only: raises a
-    ValueError while autograd records through q, k or v."""
+    ValueError while autograd records through q, k or v.
+
+    ``block_q`` and ``block_kv`` are the Pallas kernel's tile sizes, taken
+    so that a call written for ``src/repro/kernels/ops.py`` runs here. The
+    Hopper kernel picks its own tiles (128-row q tiles,
+    ``csrc/flash_attention.cu``), so the result does not depend on them."""
+    del block_q, block_kv
     return _fa.flash_attention(q, k, v, causal=causal, softcap=softcap)
 
 
