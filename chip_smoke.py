@@ -13,9 +13,13 @@ exits non-zero without the final line:
                with its time, the plain version's and a library yardstick's
                (the preprocess kernels bit for bit); flash at the prefill
                shape, at S = 2,049 (the first length on the flash path) and
-               8,192, at the archs path's GQA groups of 16 and 4,
-               non-causal, softcapped, ragged and in f32, each with its
-               time over SDPA's; the two-run merge at edges and 2^20
+               8,192, at the archs path's GQA groups of 16 and 4, at the
+               families path's shapes (head_dim 96 with group 1 at S 5,120;
+               group 3 at 64; group 6 at 128 with softcap 30; head_dim 96
+               in f32), non-causal, softcapped, ragged and in f32, each
+               with its time over SDPA's (softcapped: over a compiled
+               ``flex_attention`` with a tanh ``score_mod``, held to the
+               plain version too); the two-run merge at edges and 2^20
                keys; the per-image preprocess at edges, and the batch
                preprocess over one minibatch's local share (171 crops of
                the corpus) beside the per-image loop it replaces;
@@ -45,15 +49,33 @@ exits non-zero without the final line:
                the other: in memory, and glm4-9b also cold and warm through
                the main path's store; flash once a layer per prefill (GQA
                groups of 16 and 4), tokens equal across runs, logits finite,
-               ``n_params`` the JAX package's;
-  8. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
+               ``n_params`` the JAX package's; each arch (here and in
+               ``families``) first runs one untimed prefill, so that the
+               runs' prefill times are warm;
+  8. families — the vision frontend, MoE and Mamba-2 SSD, one arch after
+               the other (f32 params, bf16 compute, random weights):
+               phi-3-vision-4.2b at full width and depth (a stub frontend
+               of 1,024 embeddings before 4,096 text tokens; flash once a
+               layer at head_dim 96, group 1) in memory, and at ``:smoke``
+               cold and warm through the main path's store with the same
+               frontend; granite-moe-3b-a800m at full width and depth in
+               memory, cold and warm (flash at group 3; fetched caches the
+               prefill's bit for bit); grok-1-314b at full width with its
+               depth cut to 4 layers (peak under 70 GB; flash at group 6,
+               softcap 30) in memory; jamba-1.5-large-398b at ``:smoke``
+               (f32) on the card against the CPU, then cold and warm
+               through the store; one Mamba-2 layer at jamba's full widths
+               (f32) in prefill and 16 decode steps against the same layer
+               over the whole sequence; one AdamW step of granite-moe,
+               grok-1 and jamba at ``:smoke`` on the card against the CPU;
+  9. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
                synthetic corpus (sides 64-512) on a volume behind one
                storage engine: a third of each 256-image minibatch
                preprocessed by the engine's numpy stub, the rest on the card
                by one batch preprocess launch a minibatch; every batch bit
                for bit equal to a host numpy golden, before and after a
                checkpoint into OffloadDB, a remount and a resume;
-  9. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
+ 10. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
                keys of fig21's shape, a ~10 % filter: the pushdown scan,
                merged on the card by one k-way merge launch, equals the
                local scan, and its merge equals the plain merge bit for
@@ -61,24 +83,24 @@ exits non-zero without the final line:
                merge there orders nothing: streams of the scan's lengths
                with distinct prefixes go through ``merge_row_streams`` on
                the card against a plain host merge;
- 10. merge_at_path — the k-way merge timed at the path's shapes (a fetch's
+ 11. merge_at_path — the k-way merge timed at the path's shapes (a fetch's
                900 chunk indices in its runs and in 900 runs of one, the
                scan's and the distinct-prefix streams) against its plain
                version, one stable sort and, at the fetch, the two-run fold
                it replaces; each bit for bit;
- 11. train_small — one AdamW ``make_train_step`` step of qwen3-1.7b:smoke
+ 12. train_small — one AdamW ``make_train_step`` step of qwen3-1.7b:smoke
                (f32) at S = 2,304, past the flash threshold, on the card
                against the same step on the CPU: loss, grad_norm, every
                param and moment; the flash kernel must not launch (the
                train path runs the differentiable chunked twin);
- 12. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
+ 13. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
                width with prep ingest: 12 steps, a checkpoint into OffloadDB
                every 4, a crash after step 8, recover, restore, resume; the
                resumed losses bit for bit those of an uninterrupted run, the
                restored ingest state the one saved, every minibatch the
                crash run consumed bit for bit the host numpy golden (out
                32), one preprocess launch per minibatch, no merge launch;
- 13. train     — qwen3-1.7b at full width (28 layers, bf16 compute over f32
+ 14. train     — qwen3-1.7b at full width (28 layers, bf16 compute over f32
                params, remat) at S 4,096, batch 2: the first three AdamW
                steps of ``for_config``'s schedule on one batch (finite,
                falling loss), then one at microbatches 2.
@@ -106,6 +128,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 # cuBLAS is deterministic only with a fixed workspace, set before CUDA starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# the softcapped flash cases' library yardstick is compiled by inductor: its
+# caches go under the checkout's build/, and it compiles in this process
+# (no pool of worker processes left behind)
+os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
+os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them,
 # f64 outside them, HBM bandwidth
@@ -141,6 +169,18 @@ FAILOVER_STRAGGLER, FAILOVER_DELAY_S = "storage3", 0.002
 # JAX package's n_params() (src/repro/models, computed on the CPU)
 ARCHS = {"glm4-9b": 9_399_767_040, "granite-3-8b": 8_372_187_136,
          "mistral-nemo-12b": 12_247_782_400}
+# families path: the JAX package's n_params() at full width; phi-3-vision's
+# stub frontend (1,024 patch embeddings, seed 2); grok-1-314b cut to the
+# most layers whose peak stays under 70 GB (5 layers' f32 params alone are
+# 18.1 B x 4 bytes = 72.4 GB); the :smoke prompts (jamba's a multiple of
+# its SSD chunk, both under the flash threshold); one Mamba-2 layer at
+# jamba's widths at the main path's shape; the families' train steps at S 256
+FAMILIES = {"phi-3-vision-4.2b": 3_821_079_552, "granite-moe-3b-a800m": 3_374_295_552,
+            "grok-1-314b": 213_410_125_824, "jamba-1.5-large-398b": 397_644_798_720}
+FRONTEND_SEED = 2
+GROK_LAYERS, PEAK_LIMIT = 4, 70e9
+JAMBA_SMOKE_S, SMOKE_PROMPT = 2048, 256
+FAMILY_TRAIN_S = 256
 
 
 def emit(phase: str, **kw) -> None:
@@ -271,6 +311,39 @@ def _flash_work(q, k, causal):
     return flops, nbytes
 
 
+def flex_softcap_library(q, k, v, causal, cap):
+    """The softcapped flash cases' library yardstick (never called by the
+    port): one ``torch.compile``d ``flex_attention`` call with a tanh
+    softcap ``score_mod``, a causal block mask and ``enable_gqa``, which
+    computes the same softcapped GQA attention on q, k, v laid out as
+    (B, heads, S, D). Returns its ms and its errors against the plain
+    version (held to the kernel's tolerance, so that it is the same
+    function)."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    from repro_torch.kernels import ref
+
+    B, S, KV, G, D = q.shape
+    qt = q.reshape(B, S, KV * G, D).transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / cap) * cap
+
+    mask = (create_block_mask(lambda b, h, q_idx, kv_idx: q_idx >= kv_idx, None, None,
+                              S, S, device=q.device.type) if causal else None)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call():
+        return flex(qt, kt, vt, score_mod=score_mod, block_mask=mask, enable_gqa=True)
+
+    out = call().transpose(1, 2).reshape(B, S, KV, G, D)
+    errs, ok = ref.flash_attention_check(out, q, k, v, causal=causal, softcap=cap)
+    check(ok, f"flex_attention with softcap {cap} differs from the plain version: {errs}")
+    return (time_ms(call, 10) if q.is_cuda else None), errs
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -295,6 +368,14 @@ def phase_kernels():
         # (groups of 16), granite-3-8b's and mistral-nemo-12b's over 8 (of 4)
         ("glm4_g16_bf16", BATCH, PROMPT, 2, 16, 128, torch.bfloat16, True, 0.0),
         ("kv8_g4_bf16", BATCH, PROMPT, 8, 4, 128, torch.bfloat16, True, 0.0),
+        # the families path's prefill shapes: phi-3-vision's 32 heads at
+        # head_dim 96 over the frontend and the text (S 5,120), granite-moe's
+        # 24 over 8 KV heads (group 3), grok-1's 48 over 8 (group 6) with its
+        # softcap; and head_dim 96 in f32
+        ("phi3v_d96_g1_bf16", BATCH, 1024 + PROMPT, 32, 1, 96, torch.bfloat16, True, 0.0),
+        ("granite_moe_g3_bf16", BATCH, PROMPT, 8, 3, 64, torch.bfloat16, True, 0.0),
+        ("grok_g6_softcap_bf16", BATCH, PROMPT, 8, 6, 128, torch.bfloat16, True, 30.0),
+        ("d96_f32", 1, 512, 2, 2, 96, torch.float32, True, 0.0),
     ]
 
     def flash_case(name, B, S, KV, G, D, dt, causal, cap):
@@ -313,14 +394,18 @@ def phase_kernels():
                                                        softcap=cap), 10)
         rec["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(
             q, k, v, causal=causal, softcap=cap), 3, warmup=1)
-        rec["library_ms"] = None  # SDPA has no softcap
-        if not cap:
+        if cap:  # SDPA has no softcap; flex_attention computes the same function
+            rec["library"] = "flex_attention"
+            rec["library_ms"], rec["library_errors"] = flex_softcap_library(
+                q, k, v, causal, cap)
+        else:
             qt = q.reshape(B, S, KV * G, D).transpose(1, 2).contiguous()
             kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
-            rec["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                       enable_gqa=True), 10)
-        rec["ms_over_library"] = rec["ms"] / rec["library_ms"] if rec["library_ms"] else None
+            rec["library"] = "scaled_dot_product_attention"
+            rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+            del qt, kt, vt
+        rec["ms_over_library"] = rec["ms"] / rec["library_ms"]
         flops, nbytes = _flash_work(q, k, causal)
         peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peak)
@@ -333,9 +418,11 @@ def phase_kernels():
         flash_case(*case)
     emit("kernels_flash", cases=results)
     fa_rec = dict(results["prefill_bf16"])
-    fa_rec["arch_shapes"] = {name: {k: results[name][k] for k in (
-        "shape", "max_abs_err", "rel_err", "row_rel_err", "tol", "ms", "plain_ms",
-        "library_ms", "bound_ms", "bound_by")} for name in ("glm4_g16_bf16", "kv8_g4_bf16")}
+    fa_rec["arch_shapes"] = {name: {k: results[name].get(k) for k in (
+        "shape", "dtype", "softcap", "max_abs_err", "rel_err", "row_rel_err", "tol", "ms",
+        "plain_ms", "library", "library_ms", "bound_ms", "bound_by")}
+        for name in ("glm4_g16_bf16", "kv8_g4_bf16", "phi3v_d96_g1_bf16",
+                     "granite_moe_g3_bf16", "grok_g6_softcap_bf16", "d96_f32")}
 
     merged = {}
     g = torch.Generator("cuda").manual_seed(7)
@@ -588,15 +675,15 @@ def phase_small():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("qwen3-1.7b:smoke").with_(
-        head_dim=64, compute_dtype=torch.float32)  # the kernel takes D in {64, 128}
+        head_dim=64, compute_dtype=torch.float32)  # the kernel takes D in {64, 96, 128}
     model = build_model(cfg)
     params = model.init(torch.Generator("cpu").manual_seed(0))
     prompt = torch.randint(0, cfg.vocab_size, (2, 2304), dtype=torch.int32,
                            generator=torch.Generator("cpu").manual_seed(1))
     gpu_params = tree_map(lambda t: t.cuda(), params)
-    lg_cpu, _ = model.apply(params, {"tokens": prompt}, mode="prefill", max_len=2310)
-    lg_gpu, _ = model.apply(gpu_params, {"tokens": prompt.cuda()}, mode="prefill",
-                            max_len=2310)
+    lg_cpu, _, _ = model.apply(params, {"tokens": prompt}, mode="prefill", max_len=2310)
+    lg_gpu, _, _ = model.apply(gpu_params, {"tokens": prompt.cuda()}, mode="prefill",
+                               max_len=2310)
     err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
     check(torch.allclose(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4),
           f"smoke-width prefill logits differ card vs CPU: {err}")
@@ -938,7 +1025,7 @@ def failover_run(model, params, prompt, prompt2, want, plane):
 
         # the prefill initiator dies mid-put of a second prompt's cache
         fa0 = fa.LAUNCHES
-        _, cache2 = model.apply(params, {"tokens": prompt2}, mode="prefill", max_len=MAX_LEN)
+        _, cache2, _ = model.apply(params, {"tokens": prompt2}, mode="prefill", max_len=MAX_LEN)
         orphan_flash = fa.LAUNCHES - fa0
         launches["flash_attention"] += orphan_flash
         check(orphan_flash == cfg.num_layers, f"the second prompt's prefill launched flash "
@@ -1011,56 +1098,110 @@ def phase_failover(want):
 
 
 # ------------------------------------------------------------ phase 7
-def arch_run(cfg, model, params, prompt, store=None):
-    """One arch at ``cfg``: in memory, and with ``store`` cold and warm;
-    tokens in range and equal across the runs, the prefill's last-position
-    and every decode step's logits finite, flash once a layer per prefill,
-    the merge once a fetch that arrived in more than one run. Returns the
-    record."""
+def _cache_bit_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.tree import tree_leaves, tree_map
+
+    same = tree_map(lambda x, y: x.shape == y.shape and x.dtype == y.dtype
+                    and torch.equal(_bits(x), _bits(y)), a, b)
+    return all(tree_leaves(same))
+
+
+def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
+    """One arch at ``cfg``: one untimed prefill at the runs' shapes (its
+    time is ``first_prefill_ms``, so that the runs' prefill times leave
+    the first call's out), then in memory, and with ``store`` cold and
+    warm; tokens in range and equal across the runs, the prefill's
+    last-position and every decode step's logits finite, flash once per
+    attention layer a prefill when the prefill's length passes
+    ``layers.FLASH_THRESHOLD`` (else never) at the shape of the model's
+    attention, every fetched cache the prefill's bit for bit, the merge
+    once a fetch that arrived in more than one run. ``extra`` joins the
+    prefill's batch (a vision model's frontend). Returns the record."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kvmerge
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import n_periods, period_layout
     from repro_torch.serve import generate
 
+    S = cfg.frontend_seq + prompt.shape[1]
+    max_len = S + STEPS
+    attn_layers = n_periods(cfg) * sum(kind == "attn" for kind, _ in period_layout(cfg))
+    flash_per_prefill = attn_layers if S > layers.FLASH_THRESHOLD else 0
+    fa0 = fa.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        model.apply(params, {"tokens": prompt, **(extra or {})}, mode="prefill",
+                    max_len=max_len)
+        torch.cuda.synchronize()
+    first_prefill_ms = (time.perf_counter() - t0) * 1e3
+    warmup_flash = fa.LAUNCHES - fa0
+    check(warmup_flash == flash_per_prefill,
+          f"{cfg.name} first prefill: flash launched {warmup_flash} times, "
+          f"want {flash_per_prefill}")
     timed = _Timed()
     apply = timed.wrap(lambda *a, **kw: kw.get("mode", "train"), model.apply)
-    finite = []
+    finite, flash_calls = [], set()
 
     def apply_spy(*a, **kw):
-        logits, cache = apply(*a, **kw)
+        logits, cache, aux = apply(*a, **kw)
         finite.append(bool(torch.isfinite(logits[:, -1].float()).all()))
-        return logits, cache
+        return logits, cache, aux
+
+    def flash_spy(q, k, v, **kw):
+        flash_calls.add((tuple(q.shape), kw.get("softcap", 0.0)))
+        return flash_entry(q, k, v, **kw)
 
     model.apply = apply_spy
+    flash_entry, layers.ops.flash_attention = layers.ops.flash_attention, flash_spy
+    prefilled, fetched_equal = [], []
     if store is not None:
-        store.put, store.fetch = timed.wrap("put", store.put), timed.wrap("fetch", store.fetch)
-    runs, launches = {}, {"flash_attention": 0, "merge": 0}
+        put, fetch = timed.wrap("put", store.put), timed.wrap("fetch", store.fetch)
+
+        def put_spy(tokens, cache, **kw):
+            prefilled.append(cache)
+            return put(tokens, cache, **kw)
+
+        def fetch_spy(tokens):
+            cache = fetch(tokens)
+            fetched_equal.append(_cache_bit_equal(prefilled[0], cache))
+            return cache
+
+        store.put, store.fetch = put_spy, fetch_spy
+    runs, launches = {}, {"flash_attention": warmup_flash, "merge": 0}
     labels = ["in_memory"] + (["cold", "warm"] if store is not None else [])
-    for label in labels:
-        fa0, mg0 = fa.LAUNCHES, kvmerge.LAUNCHES
-        r0, f0 = (store.stats.merge_runs, store.stats.fetches) if store else (0, 0)
-        t0 = time.perf_counter()
-        toks = generate(model, params, prompt, steps=STEPS, max_len=MAX_LEN,
-                        kv_store=None if label == "in_memory" else store)
-        torch.cuda.synchronize()
-        phases = timed.take()
-        ms = {k: sum(t for lab, t in phases if lab == k)
-              for k in ("prefill", "put", "fetch", "decode")}
-        n_dec = sum(1 for lab, _ in phases if lab == "decode")
-        rec = {"total_ms": (time.perf_counter() - t0) * 1e3, "prefill_ms": ms["prefill"],
-               "put_ms": ms["put"], "fetch_ms": ms["fetch"], "decode_ms": ms["decode"],
-               "decode_steps": n_dec,
-               "decode_tok_per_s": BATCH * n_dec / (ms["decode"] / 1e3),
-               "flash_launches": fa.LAUNCHES - fa0, "merge_launches": kvmerge.LAUNCHES - mg0,
-               "tokens": toks.cpu()}
-        if store is not None:
-            rec["fetches"] = store.stats.fetches - f0
-            rec["merge_runs"] = store.stats.merge_runs - r0
-        launches["flash_attention"] += rec["flash_launches"]
-        launches["merge"] += rec["merge_launches"]
-        runs[label] = rec
-    del model.apply
+    try:
+        for label in labels:
+            fa0, mg0 = fa.LAUNCHES, kvmerge.LAUNCHES
+            r0, f0 = (store.stats.merge_runs, store.stats.fetches) if store else (0, 0)
+            t0 = time.perf_counter()
+            toks = generate(model, params, prompt, steps=STEPS, max_len=max_len,
+                            batch_extra=extra,
+                            kv_store=None if label == "in_memory" else store)
+            torch.cuda.synchronize()
+            phases = timed.take()
+            ms = {k: sum(t for lab, t in phases if lab == k)
+                  for k in ("prefill", "put", "fetch", "decode")}
+            n_dec = sum(1 for lab, _ in phases if lab == "decode")
+            rec = {"total_ms": (time.perf_counter() - t0) * 1e3, "prefill_ms": ms["prefill"],
+                   "put_ms": ms["put"], "fetch_ms": ms["fetch"], "decode_ms": ms["decode"],
+                   "decode_steps": n_dec,
+                   "decode_tok_per_s": BATCH * n_dec / (ms["decode"] / 1e3),
+                   "flash_launches": fa.LAUNCHES - fa0,
+                   "merge_launches": kvmerge.LAUNCHES - mg0, "tokens": toks.cpu()}
+            if store is not None:
+                rec["fetches"] = store.stats.fetches - f0
+                rec["merge_runs"] = store.stats.merge_runs - r0
+            launches["flash_attention"] += rec["flash_launches"]
+            launches["merge"] += rec["merge_launches"]
+            runs[label] = rec
+    finally:
+        del model.apply
+        layers.ops.flash_attention = flash_entry
     want = runs["in_memory"].pop("tokens")
     check(want.shape == (BATCH, STEPS) and bool(((want >= 0) & (want < cfg.vocab_size)).all()),
           f"{cfg.name}: tokens out of range")
@@ -1071,18 +1212,27 @@ def arch_run(cfg, model, params, prompt, store=None):
               f"{cfg.name}: {label} tokens differ from the in-memory tokens")
     for label in ("in_memory", "cold"):
         if label in runs:
-            check(runs[label]["flash_launches"] == cfg.num_layers,
+            check(runs[label]["flash_launches"] == flash_per_prefill,
                   f"{cfg.name} {label}: flash launched {runs[label]['flash_launches']} "
-                  f"times, want {cfg.num_layers}")
+                  f"times, want {flash_per_prefill}")
+    if flash_per_prefill:
+        shape = (BATCH, S, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim)
+        check(flash_calls == {(shape, cfg.attn_logit_softcap)},
+              f"{cfg.name}: flash called at {flash_calls}, want {shape}")
     if store is not None:
         check(runs["warm"]["flash_launches"] == 0, f"{cfg.name}: the warm run ran a prefill")
+        check(len(prefilled) == 1 and fetched_equal == [True, True],
+              f"{cfg.name}: a fetched cache differs from the prefill's: {fetched_equal}")
         for label in ("cold", "warm"):
             r = runs[label]
             check(r["fetches"] == 1 and r["merge_launches"] == int(r["merge_runs"] > 1),
                   f"{cfg.name} {label}: {r['merge_launches']} merge launches for a fetch in "
                   f"{r['merge_runs']} runs")
     return {"runs": runs, "launches": launches, "tokens": want.tolist(),
-            "finite_logit_calls": len(finite)}
+            "first_prefill_ms": first_prefill_ms, "flash_per_prefill": flash_per_prefill,
+            "finite_logit_calls": len(finite), "seq": S,
+            "flash_shapes": sorted([list(sh), cap] for sh, cap in flash_calls),
+            "fetched_cache_bit_equal": fetched_equal or None}
 
 
 def phase_archs():
@@ -1131,6 +1281,7 @@ def phase_archs():
     emit("archs", batch=BATCH, prompt=PROMPT, steps=STEPS, launches=launches,
          n_params={k: v["n_params"] for k, v in out.items()},
          prefill_ms={k: v["runs"]["in_memory"]["prefill_ms"] for k, v in out.items()},
+         first_prefill_ms={k: v["first_prefill_ms"] for k, v in out.items()},
          decode_tok_per_s={k: v["runs"]["in_memory"]["decode_tok_per_s"]
                            for k, v in out.items()},
          max_memory_allocated={k: v["max_memory_allocated"] for k, v in out.items()})
@@ -1138,6 +1289,235 @@ def phase_archs():
 
 
 # ------------------------------------------------------------ phase 8
+def _free():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _family_arch(name, cfg, store=None, *, frontend=False, n_params=None):
+    """``arch_run`` for ``cfg`` on the card: random weights from seed 0,
+    BATCH prompts of PROMPT tokens (SMOKE_PROMPT at ``:smoke``) from seed
+    1, and with ``frontend`` a stub of frontend_seq embeddings from seed
+    FRONTEND_SEED. Returns the record, the arch's peak memory with it."""
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    _free()
+    model = build_model(cfg)
+    if n_params is not None:
+        check(model.n_params() == n_params,
+              f"{name}: n_params {model.n_params()}, the JAX package's {n_params}")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    S = SMOKE_PROMPT if name.endswith(":smoke") else PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, S), dtype=torch.int32, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    extra = None
+    if frontend:
+        extra = {"frontend": torch.randn(
+            (BATCH, cfg.frontend_seq, cfg.d_model), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(FRONTEND_SEED))}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec = arch_run(cfg, model, params, prompt, store, extra=extra)
+    rec.update(layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
+               kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, vocab=cfg.vocab_size,
+               frontend_seq=cfg.frontend_seq if frontend else 0, n_params=model.n_params(),
+               param_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+               init_s=init_s, max_memory_allocated=torch.cuda.max_memory_allocated(),
+               cache_bytes=store.stats.put_bytes if store else None)
+    emit("family", model=name, **rec)
+    del model, params, prompt, extra
+    return rec
+
+
+def _jamba_smoke_card_vs_cpu():
+    """jamba-1.5-large-398b:smoke in f32 (its 7 mamba layers and 1
+    attention layer, MoE every other layer): the prefill's logits and MoE
+    aux on the card within 1e-4 of the CPU's, and greedy tokens equal;
+    then on the card in memory, cold and warm through the main path's
+    store (``arch_run``), tokens equal to the CPU's."""
+    import torch
+
+    from repro_torch.models.config import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import generate
+    from repro_torch.tree import tree_map
+
+    _free()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("jamba-1.5-large-398b:smoke").with_(compute_dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, JAMBA_SMOKE_S), dtype=torch.int32,
+                           generator=torch.Generator("cpu").manual_seed(1))
+    gpu_params = tree_map(lambda t: t.cuda(), params)
+    max_len = JAMBA_SMOKE_S + STEPS
+    lg_cpu, _, aux_cpu = model.apply(params, {"tokens": prompt}, mode="prefill",
+                                     max_len=max_len)
+    lg_gpu, cache, aux_gpu = model.apply(gpu_params, {"tokens": prompt.cuda()},
+                                         mode="prefill", max_len=max_len)
+    err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+    check(torch.allclose(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4),
+          f"jamba:smoke prefill logits differ card vs CPU: {err}")
+    for k in aux_cpu:
+        check(abs(float(aux_gpu[k]) - float(aux_cpu[k])) <= 1e-4 * abs(float(aux_cpu[k])),
+              f"jamba:smoke {k}: card {float(aux_gpu[k])} CPU {float(aux_cpu[k])}")
+    kinds = sorted({k for layer in cache["stack"]["unroll"] for k in layer})
+    t_cpu = generate(model, params, prompt, steps=STEPS, max_len=max_len)
+    del cache
+    rec = arch_run(cfg, model, gpu_params, prompt.cuda(), serving_store())
+    check(rec["tokens"] == t_cpu.tolist(), "jamba:smoke tokens differ card vs CPU")
+    rec.update(n_params=model.n_params(), prefill_logits_max_abs_err=err,
+               tokens_equal_cpu=True, cache_kinds=kinds,
+               aux_card={k: float(v) for k, v in aux_gpu.items()},
+               aux_cpu={k: float(v) for k, v in aux_cpu.items()},
+               compute_dtype="float32", seq=JAMBA_SMOKE_S)
+    emit("family", model=cfg.name, **rec)
+    return rec
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _mamba_full_width():
+    """One Mamba-2 layer at jamba-1.5-large-398b's widths (d_model 8,192,
+    d_inner 16,384, 256 heads of 64, d_state 64, chunk 256), random params
+    from seed 0, input from seed 3: in f32, a prefill of PROMPT tokens and
+    STEPS decode steps from its cache, held at a relative 1e-3 (Frobenius)
+    against the same layer in train mode over the whole PROMPT + one chunk
+    sequence (the chunked scan over one more chunk, not the recurrence);
+    then the same prefill and steps at bf16 compute, timed, with their
+    error against f32."""
+    import torch
+
+    from repro_torch.models import ssm
+    from repro_torch.models.config import get_config
+    from repro_torch.models.schema import init_tree
+
+    _free()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("jamba-1.5-large-398b")
+    params = init_tree(ssm.mamba_spec(cfg), torch.Generator("cuda").manual_seed(0),
+                       torch.float32)
+    S_all = PROMPT + cfg.mamba.chunk
+    x = torch.randn((BATCH, S_all, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    out = {}
+    with torch.inference_mode():
+        want, _ = ssm.apply_mamba(params, cfg.with_(compute_dtype=torch.float32), x,
+                                  mode="train")
+        for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            c = cfg.with_(compute_dtype=dt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y_pre, cache = ssm.apply_mamba(params, c, x[:, :PROMPT], mode="prefill")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ys = []
+            for t in range(PROMPT, PROMPT + STEPS):
+                y, cache = ssm.apply_mamba(params, c, x[:, t:t + 1], cache=cache,
+                                           mode="decode")
+                ys.append(y)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out[name] = {"prefill_ms": (t1 - t0) * 1e3,
+                         "decode_ms_per_step": (t2 - t1) * 1e3 / STEPS,
+                         "prefill_rel_err": _rel_err(y_pre, want[:, :PROMPT]),
+                         "decode_rel_err": _rel_err(torch.cat(ys, 1),
+                                                    want[:, PROMPT:PROMPT + STEPS]),
+                         "finite": bool(torch.isfinite(y_pre).all()
+                                        and all(torch.isfinite(y).all() for y in ys))}
+            del y_pre, cache, ys
+    f32 = out["float32"]
+    check(f32["prefill_rel_err"] <= 1e-3 and f32["decode_rel_err"] <= 1e-3,
+          f"full-width mamba layer: prefill/decode against train mode: {f32}")
+    check(out["bfloat16"]["finite"], "full-width mamba layer: bf16 output not finite")
+    rec = {"d_model": cfg.d_model, "d_inner": ssm.mamba_dims(cfg)[0],
+           "heads": ssm.mamba_dims(cfg)[1], "d_state": cfg.mamba.d_state,
+           "chunk": cfg.mamba.chunk, "batch": BATCH, "prompt": PROMPT, "steps": STEPS,
+           "tol": "rel 1e-3 (f32) against train mode", **out,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit("mamba_layer", **rec)
+    del params, x, want
+    return rec
+
+
+def phase_families():
+    """The vision frontend, MoE and Mamba-2 SSD families on the card, one
+    arch after the other (each freed before the next); f32 params, bf16
+    compute unless said: phi-3-vision-4.2b and granite-moe-3b-a800m at full
+    width and depth, grok-1-314b at full width cut to GROK_LAYERS layers,
+    jamba-1.5-large-398b at ``:smoke`` against the CPU, one full-width
+    Mamba-2 layer, and one AdamW step of three of them at ``:smoke``
+    (``train_card_vs_cpu``; AdamW's eps 1e-6, as
+    ``tests/test_torch_families.py`` takes it)."""
+    import torch
+
+    from repro_torch.models.config import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optim
+
+    out = {}
+    phi = get_config("phi-3-vision-4.2b")
+    out["phi-3-vision-4.2b"] = _family_arch("phi-3-vision-4.2b", phi, frontend=True,
+                                            n_params=FAMILIES["phi-3-vision-4.2b"])
+    phi_s = get_config("phi-3-vision-4.2b:smoke")
+    out["phi-3-vision-4.2b:smoke"] = _family_arch("phi-3-vision-4.2b:smoke", phi_s,
+                                                  serving_store(), frontend=True)
+    gm = get_config("granite-moe-3b-a800m")
+    out["granite-moe-3b-a800m"] = _family_arch("granite-moe-3b-a800m", gm, serving_store(),
+                                               n_params=FAMILIES["granite-moe-3b-a800m"])
+    grok_full = get_config("grok-1-314b")
+    check(build_model(grok_full).n_params() == FAMILIES["grok-1-314b"],
+          "grok-1-314b: full-width n_params differs from the JAX package's")
+    grok = grok_full.with_(num_layers=GROK_LAYERS)
+    rec = _family_arch("grok-1-314b", grok)
+    check(rec["max_memory_allocated"] < PEAK_LIMIT,
+          f"grok-1-314b at {GROK_LAYERS} layers peaked at {rec['max_memory_allocated']} B")
+    rec["cut"] = (f"num_layers {grok_full.num_layers} -> {GROK_LAYERS}: the most whose peak "
+                  f"stays under {PEAK_LIMIT:.0f} B")
+    out["grok-1-314b"] = rec
+    check(build_model(get_config("jamba-1.5-large-398b")).n_params()
+          == FAMILIES["jamba-1.5-large-398b"],
+          "jamba-1.5-large-398b: full-width n_params differs from the JAX package's")
+    out["jamba-1.5-large-398b:smoke"] = _jamba_smoke_card_vs_cpu()
+    mamba = _mamba_full_width()
+    _free()
+    lr = 3e-4
+    trains = {}
+    for name in ("granite-moe-3b-a800m", "grok-1-314b", "jamba-1.5-large-398b"):
+        cfg = get_config(f"{name}:smoke").with_(compute_dtype=torch.float32)
+        trains[name] = train_card_vs_cpu(cfg, FAMILY_TRAIN_S, optim.adamw(lr=lr, eps=1e-6), lr)
+        check(trains[name]["metrics_card"]["moe_aux"] > 0, f"{name}: no MoE aux loss")
+        emit("family_train", **trains[name])
+    launches = {k: sum(r["launches"][k] for r in out.values())
+                for k in ("flash_attention", "merge")}
+    emit("families", batch=BATCH, prompt=PROMPT, steps=STEPS, launches=launches,
+         n_params={k: v["n_params"] for k, v in out.items()},
+         prefill_ms={k: v["runs"]["in_memory"]["prefill_ms"] for k, v in out.items()},
+         first_prefill_ms={k: v["first_prefill_ms"] for k, v in out.items()},
+         decode_tok_per_s={k: v["runs"]["in_memory"]["decode_tok_per_s"]
+                           for k, v in out.items()},
+         max_memory_allocated={k: v["max_memory_allocated"] for k, v in out.items()
+                               if "max_memory_allocated" in v},
+         cache_bytes={k: v.get("cache_bytes") for k, v in out.items()},
+         put_ms={k: v["runs"]["cold"]["put_ms"] for k, v in out.items() if "cold" in v["runs"]},
+         fetch_ms={k: {r: v["runs"][r]["fetch_ms"] for r in ("cold", "warm")}
+                   for k, v in out.items() if "cold" in v["runs"]},
+         grok_cut=out["grok-1-314b"]["cut"], mamba_layer=mamba,
+         train_max_abs_err={k: v["max_abs_err"] for k, v in trains.items()})
+    _free()
+    return launches
+
+
+# ------------------------------------------------------------ phase 9
 def _prep_plane(dev=None):
     """A volume of 2^17 blocks behind one storage engine that serves
     ``stub_preprocess`` (and OffloadDB's stubs); with ``dev`` it remounts
@@ -1294,7 +1674,7 @@ def phase_prep():
     return launches
 
 
-# ------------------------------------------------------------ phase 9
+# ------------------------------------------------------------ phase 10
 class _MergeRecord:
     """While in use, records the input and the result of every
     ``ops.merge_runs`` call; the call itself is the path's, so the kernel's
@@ -1439,7 +1819,7 @@ def phase_pushdown():
                       "scan_distinct_prefixes": distinct_merges.calls[0][0]}
 
 
-# ------------------------------------------------------------ phases 11-13
+# ------------------------------------------------------------ phases 12-14
 @contextlib.contextmanager
 def deterministic():
     """``torch.use_deterministic_algorithms(True)`` for the block: an op
@@ -1464,31 +1844,26 @@ def _max_err(got, want) -> float:
     return (got.detach().cpu().double() - want.detach().double()).abs().max().item()
 
 
-def phase_train_small():
-    """One AdamW ``make_train_step`` step of qwen3-1.7b:smoke in f32 at S =
-    2,304 (the chunked twin's branch) on the card against the same step on
-    the CPU from the same params: loss and grad_norm within a relative
-    1e-4 (f32 sums in another order), AdamW's m (0.1 × the clipped
-    gradient) and v within 1e-4 of each leaf's largest value, every param
-    within lr / 10 (a lost gradient moves a param by lr × sign(g) on one
-    side only). The flash kernel must not launch: it has no backward."""
+def train_card_vs_cpu(cfg, seq: int, opt, lr: float) -> dict:
+    """One AdamW ``make_train_step`` step of ``cfg`` (f32) at ``seq`` on the
+    card against the same step on the CPU from the same params, under
+    ``deterministic()``: loss, grad_norm and the other metrics within a
+    relative 1e-4 (f32 sums in another order), AdamW's m (0.1 × the
+    clipped gradient) and v within 1e-4 of each leaf's largest value, every
+    param within lr / 10 (a lost gradient moves a param by lr × sign(g) on
+    one side only). Returns the record, with the card's flash launches."""
     import torch
 
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.config import get_config
     from repro_torch.models.model import build_model
-    from repro_torch.train import optim
     from repro_torch.train.step import init_state, make_train_step
     from repro_torch.tree import tree_flatten_with_path, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("qwen3-1.7b:smoke").with_(compute_dtype=torch.float32)
     model = build_model(cfg)
-    lr = 3e-4
-    opt = optim.adamw(lr=lr)
     params = model.init(torch.Generator("cpu").manual_seed(0))
-    b = TokenPipeline(cfg.vocab_size, 2, TRAIN_SMALL_S).next_batch()
+    b = TokenPipeline(cfg.vocab_size, 2, seq).next_batch()
     step = make_train_step(model, opt)
     states, metrics, launches = {}, {}, {}
     for dev in ("cuda", "cpu"):
@@ -1500,25 +1875,42 @@ def phase_train_small():
         launches[dev] = fa.LAUNCHES - f0
     torch.cuda.synchronize()
     g, c = metrics["cuda"], metrics["cpu"]
-    check(launches["cuda"] == 0, f"the train step launched flash {launches['cuda']} times")
-    for k in ("loss", "grad_norm", "ce", "zloss"):
+    check(set(g) == set(c), f"{cfg.name}: metrics {sorted(g)} vs {sorted(c)}")
+    for k in g:
         check(math.isfinite(g[k]) and abs(g[k] - c[k]) <= 1e-4 * abs(c[k]),
-              f"train_small {k}: card {g[k]} CPU {c[k]}")
+              f"{cfg.name} train {k}: card {g[k]} CPU {c[k]}")
     errs = {}
     for (path, a), (_, w) in zip(tree_flatten_with_path(states["cuda"]),
                                  tree_flatten_with_path(states["cpu"])):
         name = "/".join(map(str, path))
         err = _max_err(a, w)
         tol = lr / 10 if path[0] == "params" else 1e-4 * w.abs().max().item()
-        check(err <= tol, f"train_small {name}: card and CPU differ by {err} > {tol}")
+        check(err <= tol, f"{cfg.name} train {name}: card and CPU differ by {err} > {tol}")
         errs[name] = err
     worst = {k: max(e for n, e in errs.items() if n.startswith(k))
              for k in ("params", "opt/m", "opt/v")}
-    emit("train_small", model=cfg.name, seq=TRAIN_SMALL_S, batch=2, metrics_card=g,
-         metrics_cpu=c, leaves=len(errs), max_abs_err=worst,
-         flash_launches=launches["cuda"], tol={"loss": "rel 1e-4", "params": lr / 10,
-                                               "moments": "1e-4 x leaf max"})
-    return launches["cuda"]
+    return {"model": cfg.name, "seq": seq, "batch": 2, "metrics_card": g,
+            "metrics_cpu": c, "leaves": len(errs), "max_abs_err": worst,
+            "flash_launches": launches["cuda"],
+            "tol": {"metrics": "rel 1e-4", "params": lr / 10, "moments": "1e-4 x leaf max"}}
+
+
+def phase_train_small():
+    """One AdamW step of qwen3-1.7b:smoke in f32 at S = 2,304 (the chunked
+    twin's branch) on the card against the CPU (``train_card_vs_cpu``).
+    The flash kernel must not launch: it has no backward."""
+    import torch
+
+    from repro_torch.models.config import get_config
+    from repro_torch.train import optim
+
+    lr = 3e-4
+    cfg = get_config("qwen3-1.7b:smoke").with_(compute_dtype=torch.float32)
+    rec = train_card_vs_cpu(cfg, TRAIN_SMALL_S, optim.adamw(lr=lr), lr)
+    check(rec["flash_launches"] == 0,
+          f"the train step launched flash {rec['flash_launches']} times")
+    emit("train_small", **rec)
+    return rec["flash_launches"]
 
 
 class _PrepBatchRecord:
@@ -1741,6 +2133,7 @@ def main() -> int:
     launches, nchunks, nruns, main_tokens = timed_phase("main", phase_main)
     failover_launches = timed_phase("failover", phase_failover, main_tokens.cpu())
     arch_launches = timed_phase("archs", phase_archs)
+    family_launches = timed_phase("families", phase_families)
     prep_launches = timed_phase("prep", phase_prep)
     pushdown_launches, scans = timed_phase("pushdown", phase_pushdown)
     merges = timed_phase("merge_at_path", time_merge_at_path, nchunks, nruns, scans)
@@ -1758,6 +2151,7 @@ def main() -> int:
          "launches_by_path": {"serve": launches["flash_attention"],
                               "failover": failover_launches["flash_attention"],
                               "archs": arch_launches["flash_attention"],
+                              "families": family_launches["flash_attention"],
                               "train_small": small_flash,
                               "train_e2e": e2e_launches["flash_attention"],
                               "train": train_flash},
@@ -1772,7 +2166,9 @@ def main() -> int:
          "payload_mismatches": mg_rec["payload_mismatches"],
          "launches_by_path": {"serve": launches["merge"],
                               "failover": failover_launches["merge"],
-                              "archs": arch_launches["merge"], "pushdown": pushdown_launches,
+                              "archs": arch_launches["merge"],
+                              "families": family_launches["merge"],
+                              "pushdown": pushdown_launches,
                               "train_e2e": e2e_launches["merge"]},
          "ms": mg_rec["ms"], "plain_ms": mg_rec["plain_ms"], "bound_ms": mg_rec["bound_ms"],
          "bound_by": mg_rec["bound_by"], "library_ms": mg_rec["library_ms"]},

@@ -1,11 +1,16 @@
 """Architecture registry: importing this package registers the ported
-architectures (``qwen3-1.7b``, ``glm4-9b``, ``granite-3-8b`` and
-``mistral-nemo-12b``, each with its ``:smoke`` variant, and
-``paper-lm-100m``)."""
+architectures (``qwen3-1.7b``, ``glm4-9b``, ``granite-3-8b``,
+``mistral-nemo-12b``, ``phi-3-vision-4.2b``, ``granite-moe-3b-a800m``,
+``grok-1-314b`` and ``jamba-1.5-large-398b``, each with its ``:smoke``
+variant, and ``paper-lm-100m``)."""
 from repro_torch.configs import (  # noqa: F401
     glm4_9b,
     granite_3_8b,
+    granite_moe_3b_a800m,
+    grok_1_314b,
+    jamba_1_5_large,
     mistral_nemo_12b,
     paper_lm,
+    phi_3_vision_4_2b,
     qwen3_1_7b,
 )

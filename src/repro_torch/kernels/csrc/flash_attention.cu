@@ -52,6 +52,13 @@
 //       out of step on the tensor cores with no barrier between them.
 //     - Epilogue: normalise in registers, write bf16 through the output's
 //       strides, rows past Sq skipped.
+//     - Head dim 96 (phi-3-vision) runs in the D = 128 layout: the tensor
+//       maps carry the true inner extent 96, so TMA fills columns 96-127
+//       of the second 64-column box with zeros; Q K^T over them adds 0,
+//       P V gives 0 there, and the epilogue stores only the 96 columns.
+//       That is 4/3 of the needed MMA work; a native 96-column layout
+//       (a 64-byte swizzle for the second box, wgmma n96 for P V) is not
+//       done.
 //   * f32 (exact to f32 rounding, for tests at f32; wgmma has no exact
 //     f32): one CTA of 4 warps per (batch*head, 64-row q tile); the tiles
 //     are staged in shared memory and both products are plain FMA loops.
@@ -427,7 +434,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* qm, const CUtensorMap
   }
 }
 
-template <int D, bool CAP>
+// D: the layout's columns (64 or 128); DO <= D: the head dim, the columns
+// the epilogue stores
+template <int D, int DO, bool CAP>
 __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* __restrict__ o,
                                         Strides os, Work wk, int Sq, float scale,
                                         float softcap) {
@@ -506,14 +515,14 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
       if (row >= Sq) continue;
       bf16* orow = o + t.b * os.b + (long long)row * os.s + t.h * os.h + 2 * t4;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DO / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + 8 * n) =
             pack_bf16(acc[4 * n + 2 * rr] * inv[rr], acc[4 * n + 2 * rr + 1] * inv[rr]);
     }
   }
 }
 
-template <int D, bool CAP>
+template <int D, int DO, bool CAP>
 __global__ void __launch_bounds__(HTHREADS, 1)
     fa_fwd_hopper(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                   const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o, Strides os,
@@ -544,7 +553,7 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     if (threadIdx.x == 0) produce<D>(&qm, &km, &vm, smem, br, wk, G);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<D, CAP>(smem, br, o, os, wk, Sq, scale, softcap);
+    consume<D, DO, CAP>(smem, br, o, os, wk, Sq, scale, softcap);
   }
 }
 
@@ -569,7 +578,8 @@ EncodeTiled encode_tiled() {
 
 // rank-4 map (D, heads, S, batch) over a bf16 tensor with element strides
 // st (the wrapper gives a dim of size 1, never stepped, 8: 16 bytes, as TMA
-// needs); box (64, 1, rows, 1)
+// needs); box (64, 1, rows, 1). A box's columns at or past D come in as
+// zeros, and still count toward the barrier's transaction bytes.
 bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* base, int D, int heads, int S,
                 int B, Strides st, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
@@ -583,11 +593,11 @@ bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* base, int D, int 
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool CAP>
+template <int D, int DO, bool CAP>
 int launch_tiles(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
                   Strides os, Work wk, int G, int Sq, float scale, float softcap,
                   cudaStream_t stream) {
-  auto kern = fa_fwd_hopper<D, CAP>;
+  auto kern = fa_fwd_hopper<D, DO, CAP>;
   const size_t bytes = HopperLayout<D>::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -603,7 +613,8 @@ int launch_tiles(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap
   return (int)cudaGetLastError();
 }
 
-template <int D>
+// D: the layout's columns; DO: the head dim (the tensors' last extent)
+template <int D, int DO>
 int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
                   int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
                   float softcap, int causal, cudaStream_t stream) {
@@ -612,14 +623,16 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, i
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  if (!tensor_map(enc, &qm, q, D, H, Sq, B, qs, HBQ) ||
-      !tensor_map(enc, &km, k, D, KVH, Sk, B, ks, HBK) ||
-      !tensor_map(enc, &vm, v, D, KVH, Sk, B, vs, HBK))
+  if (!tensor_map(enc, &qm, q, DO, H, Sq, B, qs, HBQ) ||
+      !tensor_map(enc, &km, k, DO, KVH, Sk, B, ks, HBK) ||
+      !tensor_map(enc, &vm, v, DO, KVH, Sk, B, vs, HBK))
     return (int)cudaErrorInvalidValue;
   const Work wk{nqt * H * B, nqt, H, B, Sk, causal};
   if (softcap > 0.f)
-    return launch_tiles<D, true>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap, stream);
-  return launch_tiles<D, false>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap, stream);
+    return launch_tiles<D, DO, true>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap,
+                                     stream);
+  return launch_tiles<D, DO, false>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap,
+                                    stream);
 }
 
 // ======================================================= f32: shared memory
@@ -804,10 +817,13 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
 #define FA_ARGS q, k, v, o, B, H, KVH, Sq, Sk, qs, ks, vs, os, scale, softcap, causal, st
   if (dtype == 0 && D == 64)
     return launch<float>(fa_fwd_f32<64>, F32Layout<64>::BYTES, FA_ARGS);
+  if (dtype == 0 && D == 96)
+    return launch<float>(fa_fwd_f32<96>, F32Layout<96>::BYTES, FA_ARGS);
   if (dtype == 0 && D == 128)
     return launch<float>(fa_fwd_f32<128>, F32Layout<128>::BYTES, FA_ARGS);
-  if (dtype == 1 && D == 64) return launch_hopper<64>(FA_ARGS);
-  if (dtype == 1 && D == 128) return launch_hopper<128>(FA_ARGS);
+  if (dtype == 1 && D == 64) return launch_hopper<64, 64>(FA_ARGS);
+  if (dtype == 1 && D == 96) return launch_hopper<128, 96>(FA_ARGS);
+  if (dtype == 1 && D == 128) return launch_hopper<128, 128>(FA_ARGS);
 #undef FA_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -14,6 +14,9 @@ builds over that layout from these strides (rank 4: D, heads, S, B); the
 f32 kernel walks the same strides with plain loads. A dim of size 1 is
 never stepped, and is given a stride of 16 bytes, as TMA needs.
 
+Head dims 64, 96 and 128 are taken; the bf16 kernel runs 96 in its
+128-column layout, the columns past 96 zero-filled by TMA (no copy here).
+
 A CPU tensor takes the plain version (``ref.flash_attention_ref``); a CUDA
 tensor launches the kernel or raises. The kernel is a forward only, as the
 Pallas kernel is (no ``custom_vjp``): its output has no gradient, so a
@@ -35,7 +38,7 @@ from repro_torch.kernels import build, ref
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 96, 128)
 
 
 def _fn():

@@ -9,6 +9,28 @@ import torch
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    experts_per_token: int
+    expert_d_ff: int
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    """Mamba block as the Mamba-2 / SSD matmul formulation: a scalar decay
+    per head, chunked over the sequence."""
+
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | ssm | hybrid | moe | audio | vlm
@@ -21,14 +43,12 @@ class ModelConfig:
     head_dim: int = 0  # 0 → d_model // num_heads
     # block layout: pattern cycled over layers. entries: attn | mamba | slstm | mlstm
     block_pattern: Tuple[str, ...] = ("attn",)
-    # MoE: layer i is MoE iff moe_every > 0 and (i % moe_every == moe_offset).
-    # The MoE / mamba / xLSTM sub-configs come with their slices; only their
-    # presence is read here (the stack raises NotImplementedError).
-    moe: Optional[Any] = None
+    # MoE: layer i is MoE iff moe_every > 0 and (i % moe_every == moe_offset)
+    moe: Optional[MoEConfig] = None
     moe_every: int = 0
     moe_offset: int = 1
-    mamba: Optional[Any] = None
-    xlstm: Optional[Any] = None
+    mamba: Optional[MambaConfig] = None
+    xlstm: Optional[Any] = None  # the xLSTM blocks are not ported yet
     # attention details
     mlp_kind: str = "swiglu"  # swiglu | gelu
     norm_kind: str = "rmsnorm"  # rmsnorm | layernorm

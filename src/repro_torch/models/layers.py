@@ -1,6 +1,6 @@
 """Core layers (port of ``src/repro/models/layers.py``): norms, RoPE, GQA
-attention (train/prefill/decode), the swiglu MLP. The slice ports what
-qwen3 uses; other norm and MLP kinds raise ``NotImplementedError``.
+attention (train/prefill/decode), the swiglu and gelu MLPs. The layernorm
+norm kind is not ported yet and raises ``NotImplementedError``.
 
 Attention has three paths:
   * einsum attention (plain torch) for seq <= FLASH_THRESHOLD and all decode;
@@ -263,18 +263,27 @@ def apply_attention(
 
 
 # ------------------------------------------------------------------- MLPs
-def mlp_spec(cfg) -> dict:
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(f"mlp_kind {cfg.mlp_kind!r} is not ported yet")
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_spec(cfg, d_ff: Optional[int] = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        return {
+            "wi": ParamSpec((d, f), ("embed", "mlp")),
+            "wg": ParamSpec((d, f), ("embed", "mlp")),
+            "wo": ParamSpec((f, d), ("mlp", "embed")),
+        }
     return {
         "wi": ParamSpec((d, f), ("embed", "mlp")),
-        "wg": ParamSpec((d, f), ("embed", "mlp")),
         "wo": ParamSpec((f, d), ("mlp", "embed")),
     }
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def apply_mlp(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x·wg) ⊙ x·wi)·wo."""
-    h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wi"].to(x.dtype))
+    """SwiGLU (silu(x·wg) ⊙ x·wi)·wo, or gelu(x·wi)·wo without ``wg``."""
+    h = x @ p["wi"].to(x.dtype)
+    h = F.silu(x @ p["wg"].to(x.dtype)) * h if "wg" in p else gelu(h)
     return h @ p["wo"].to(x.dtype)

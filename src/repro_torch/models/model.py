@@ -1,15 +1,17 @@
 """Top-level model (port of ``src/repro/models/model.py``): embeddings,
 stack, head, loss; ``apply`` in three modes.
 
-  * ``train``   — tokens (B,S) → logits (B,S,V)
+  * ``train``   — tokens (B,S) [+ stub frontend embeddings] → logits (B,S,V)
   * ``prefill`` — builds the decode cache, returns last-position logits
   * ``decode``  — one token per sequence against the cache
 
 ``train_loss`` runs the stack in train mode and the head and
 cross-entropy over sequence chunks (``chunked_lm_loss``), never holding
-the (B, S, V) logits. Only the dense, text-only model is ported: the
-encoder–decoder and vision frontends and the MoE aux losses come with the
-model-families slice and raise ``NotImplementedError``.
+the (B, S, V) logits, and adds the MoE aux losses. A vision model takes
+its stub frontend embeddings (B, frontend_seq, D) as ``batch["frontend"]``,
+prepended to the tokens outside decode; its loss covers the text positions
+only. The encoder–decoder model is not ported yet and raises
+``NotImplementedError``.
 
 Parameters are plain nested dicts/tuples of tensors with the JAX package's
 tree structure (``models.bridge`` converts a JAX tree into one).
@@ -29,9 +31,9 @@ from repro_torch.tree import tree_map
 
 class Model:
     def __init__(self, cfg):
-        if cfg.encoder_decoder or cfg.frontend != "none":
-            raise NotImplementedError("encoder–decoder and frontend models "
-                                      "come with the model-families slice")
+        if cfg.encoder_decoder or cfg.frontend not in ("none", "vision"):
+            raise NotImplementedError("encoder–decoder models and the audio "
+                                      "frontend are not ported yet")
         self.cfg = cfg
 
     # ------------------------------------------------------------- params
@@ -78,23 +80,33 @@ class Model:
             return x @ params["embed"].to(cfg.compute_dtype).T
         return x @ params["lm_head"].to(cfg.compute_dtype)
 
-    def apply(self, params: dict, batch: Dict[str, torch.Tensor], *,
-              mode: str = "train", cache: Optional[dict] = None,
-              max_len: Optional[int] = None):
-        """Returns (logits, new_cache). batch: {"tokens": (B,S) int}; decode
-        takes tokens (B,1) and the cache, which it updates in place."""
+    def _inputs(self, params, batch, mode):
+        """Embedded tokens, with the vision frontend prepended outside
+        decode, and their positions."""
         tokens = batch["tokens"]
         B = tokens.shape[0]
         x = self._embed(params, tokens)
+        if self.cfg.frontend == "vision" and mode != "decode":
+            fe = batch["frontend"].to(self.cfg.compute_dtype)  # (B,F,D) patches
+            x = torch.cat([fe, x], 1)
         S = x.shape[1]
+        return x, torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+    def apply(self, params: dict, batch: Dict[str, torch.Tensor], *,
+              mode: str = "train", cache: Optional[dict] = None,
+              max_len: Optional[int] = None):
+        """Returns (logits, new_cache, aux). batch: {"tokens": (B,S) int},
+        and for a vision model {"frontend": (B,F,D)} outside decode; decode
+        takes tokens (B,1) and the cache, which it updates in place. aux:
+        the MoE losses summed over the layers (0 without MoE)."""
+        x, positions = self._inputs(params, batch, mode)
+        B, S = x.shape[:2]
         if mode == "decode":
             if cache is None:
                 raise ValueError("decode needs a cache")
             positions = cache["pos"][:, None]  # (B,1)
-        else:
-            positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
 
-        x, new_stack_cache = T.apply_stack(
+        x, new_stack_cache, aux = T.apply_stack(
             params["stack"], self.cfg, x, positions=positions,
             caches=cache["stack"] if cache is not None else None,
             mode=mode, max_len=max_len,
@@ -111,21 +123,25 @@ class Model:
             new_cache = {"stack": new_stack_cache, "pos": cache["pos"] + 1}
         else:
             logits = self._head(params, x)
-        return logits, new_cache
+        return logits, new_cache, aux
 
     def train_loss(self, params: dict, batch: Dict[str, torch.Tensor], *,
                    chunk: int = 1024):
         """Memory-lean train loss: the stack in train mode, then the head and
-        cross-entropy over rematerialised sequence chunks. batch: tokens and
-        labels (B,S) int, optional loss_mask (B,S). Returns (loss, metrics)."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = self._embed(params, tokens)
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-        x, _ = T.apply_stack(params["stack"], self.cfg, x, positions=positions,
-                             mode="train")
-        return chunked_lm_loss(self, params, x, batch["labels"], batch.get("loss_mask"),
-                               chunk=chunk)
+        cross-entropy over rematerialised sequence chunks, plus the MoE aux
+        losses. batch: tokens and labels (B,S) int, optional loss_mask (B,S),
+        and a vision model's frontend (B,F,D). Returns (loss, metrics)."""
+        x, positions = self._inputs(params, batch, "train")
+        x, _, aux = T.apply_stack(params["stack"], self.cfg, x, positions=positions,
+                                  mode="train")
+        if self.cfg.frontend == "vision":
+            x = x[:, self.cfg.frontend_seq:]  # loss over text positions only
+        loss, metrics = chunked_lm_loss(self, params, x, batch["labels"],
+                                        batch.get("loss_mask"), chunk=chunk)
+        for k in ("moe_aux", "moe_z"):
+            loss = loss + aux[k]
+            metrics[k] = aux[k]
+        return loss, metrics
 
 
 def build_model(cfg) -> Model:

@@ -16,9 +16,11 @@ from repro_torch.tree import tree_leaves, tree_map
 class ParamSpec:
     """Declares one parameter tensor.
 
-    init kinds (those the ported architectures use):
+    init kinds:
       normal    — N(0, scale/sqrt(fan_in)) with fan_in = shape[fan_in_axis]
+      trunc     — normal truncated to ±3 standard deviations, stddev=scale
       zeros/ones
+      identity_conv — dirac init for depthwise conv kernels
     """
 
     shape: Tuple[int, ...]
@@ -50,6 +52,14 @@ def materialize(spec: ParamSpec, gen: torch.Generator, default_dtype) -> torch.T
         std = spec.scale / max(float(fan_in), 1.0) ** 0.5
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
         return w.mul_(std).to(dtype)
+    if spec.init == "trunc":
+        w = torch.empty(shape, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+        return w.mul_(spec.scale).to(dtype)
+    if spec.init == "identity_conv":  # (width, channels): impulse at last tap
+        w = torch.zeros(shape, dtype=torch.float32, device=dev)
+        w[-1] = 1.0
+        return w.to(dtype)
     raise ValueError(f"unknown init {spec.init!r}")
 
 

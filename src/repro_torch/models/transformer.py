@@ -12,8 +12,10 @@ In train mode with ``cfg.remat != "none"`` each period runs under
 ``remat_save``, and no value of the model carries that name, so it saves
 nothing inside a period: ``"block"`` and ``"full"`` are the same here.
 
-This slice ports attention blocks with a dense MLP. MoE, mamba, xLSTM,
-cross-attention and encoder–decoder stacks raise ``NotImplementedError``.
+Blocks are attention or mamba, each followed by a dense MLP or an MoE
+sublayer; the MoE aux losses are summed over the layers and periods. xLSTM
+blocks, cross-attention and encoder–decoder stacks are not ported yet and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,13 +25,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models.schema import ParamSpec
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _unsupported(what: str):
-    return NotImplementedError(f"{what} comes with the model-families slice "
-                               "(attention blocks with a dense MLP only so far)")
+    return NotImplementedError(f"{what} is not ported yet (attention and mamba "
+                               "blocks, dense or MoE)")
 
 
 # ----------------------------------------------------------------- layout
@@ -50,12 +54,17 @@ def n_periods(cfg) -> int:
 
 # ------------------------------------------------------------ layer specs
 def layer_spec(cfg, kind: str, is_moe: bool) -> dict:
-    if kind != "attn":
+    spec: Dict[str, Any] = {"ln1": L.norm_spec(cfg)}
+    if kind == "attn":
+        spec["attn"] = L.attention_spec(cfg)
+    elif kind == "mamba":
+        spec["mamba"] = S.mamba_spec(cfg)
+    else:
         raise _unsupported(f"block kind {kind!r}")
     if is_moe:
-        raise _unsupported("MoE")
-    spec: Dict[str, Any] = {"ln1": L.norm_spec(cfg), "attn": L.attention_spec(cfg)}
-    if cfg.d_ff > 0:
+        spec["ln2"] = L.norm_spec(cfg)
+        spec["moe"] = M.moe_spec(cfg)
+    elif cfg.d_ff > 0:
         spec["ln2"] = L.norm_spec(cfg)
         spec["mlp"] = L.mlp_spec(cfg)
     return spec
@@ -90,6 +99,8 @@ def stack_spec(cfg) -> dict:
 # --------------------------------------------------------- cache plumbing
 def layer_cache_spec(cfg, kind: str, batch: int, max_len: int) -> dict:
     """Decode-cache (shape, dtype) leaves for one layer."""
+    if kind == "mamba":
+        return S.mamba_cache_spec(cfg, batch)
     if kind != "attn":
         raise _unsupported(f"block kind {kind!r}")
     kv, hd = cfg.num_kv_heads, cfg.head_dim
@@ -120,30 +131,50 @@ def _is_shape_dtype(x) -> bool:
 # ------------------------------------------------------------- layer body
 def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
                 cache: Optional[dict], mode: str, max_len: Optional[int] = None):
-    """Pre-norm residual layer. Returns (x, new_cache)."""
-    if kind != "attn":
-        raise _unsupported(f"block kind {kind!r}")
+    """Pre-norm residual layer. Returns (x, new_cache, aux)."""
+    aux: Dict[str, torch.Tensor] = {}
     h = L.apply_norm(p["ln1"], x)
-    out, kvc = L.apply_attention(
-        p["attn"], cfg, h, positions=positions,
-        cache=cache["kv"] if cache else None, mode=mode, max_len=max_len,
-    )
+    if kind == "attn":
+        out, kvc = L.apply_attention(
+            p["attn"], cfg, h, positions=positions,
+            cache=cache["kv"] if cache else None, mode=mode, max_len=max_len,
+        )
+        new_cache = {"kv": kvc} if kvc is not None else None
+    elif kind == "mamba":
+        out, new_cache = S.apply_mamba(p["mamba"], cfg, h, cache=cache, mode=mode)
+    else:
+        raise _unsupported(f"block kind {kind!r}")
     x = x + out
-    new_cache = {"kv": kvc} if kvc is not None else None
-    if "mlp" in p:
+    if "moe" in p:
+        y, aux = M.apply_moe(p["moe"], cfg, L.apply_norm(p["ln2"], x))
+        x = x + y
+    elif "mlp" in p:
         x = x + L.apply_mlp(p["mlp"], cfg, L.apply_norm(p["ln2"], x))
-    return x, new_cache
+    return x, new_cache, aux
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("moe_aux", "moe_z")}
+
+
+def _add_aux(aux: dict, a: dict) -> None:
+    for k, v in a.items():
+        aux[k] = aux[k] + v
 
 
 def _apply_period(pp, cfg, layout, x, *, positions, caches, mode, max_len):
-    """One period of layers. caches: tuple aligned with layout (or None)."""
+    """One period of layers. caches: tuple aligned with layout (or None).
+    Returns (x, new_caches, aux)."""
+    aux = _zero_aux(x.device)
     new_caches = []
     for i, (kind, _) in enumerate(layout):
         c = caches[i] if caches is not None else None
-        x, nc = apply_layer(pp[i], cfg, kind, x, positions=positions, cache=c,
-                            mode=mode, max_len=max_len)
+        x, nc, a = apply_layer(pp[i], cfg, kind, x, positions=positions, cache=c,
+                               mode=mode, max_len=max_len)
+        _add_aux(aux, a)
         new_caches.append(nc)
-    return x, tuple(new_caches)
+    return x, tuple(new_caches), aux
 
 
 def _write_back(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -154,12 +185,14 @@ def _write_back(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 def apply_stack(params: dict, cfg, x: torch.Tensor, *, positions, caches=None,
                 mode: str = "train", max_len: Optional[int] = None):
-    """Run a stack. Returns (x, new_caches); caches mirror the
-    ``stack_cache_spec`` layout ({"scan": ...} or {"unroll": ...}). In the
-    stacked layout a decode step updates the stacked cache in place."""
+    """Run a stack. Returns (x, new_caches, aux); caches mirror the
+    ``stack_cache_spec`` layout ({"scan": ...} or {"unroll": ...}), aux
+    sums the MoE losses over every layer. In the stacked layout a decode
+    step updates the stacked cache in place."""
     layout = period_layout(cfg)
     want_cache = mode in ("prefill", "decode")
     use_remat = cfg.remat != "none" and mode == "train"
+    aux = _zero_aux(x.device)
 
     def run_period(pp, x, pc):
         def fn(pp, x):
@@ -179,16 +212,17 @@ def apply_stack(params: dict, cfg, x: torch.Tensor, *, positions, caches=None,
         for i in range(n):
             pp = tree_unflatten(stacked, [ts[i] for ts in per_leaf])
             pc = tree_map(lambda a, i=i: a[i], pc_stacked) if pc_stacked else None
-            x, ncs = run_period(pp, x, pc)
+            x, ncs, a = run_period(pp, x, pc)
+            _add_aux(aux, a)
             if pc is not None:
                 tree_map(_write_back, pc, ncs)
             elif want_cache:
                 per_period.append(ncs)
         if not want_cache:
-            return x, None
+            return x, None, aux
         if pc_stacked is not None:
-            return x, {"scan": pc_stacked}
-        return x, {"scan": tree_map(lambda *ls: torch.stack(ls), *per_period)}
+            return x, {"scan": pc_stacked}, aux
+        return x, {"scan": tree_map(lambda *ls: torch.stack(ls), *per_period)}, aux
 
     per_layers = params["unroll"]
     n = len(per_layers) // len(layout)
@@ -197,6 +231,7 @@ def apply_stack(params: dict, cfg, x: torch.Tensor, *, positions, caches=None,
         pp = per_layers[pi * len(layout): (pi + 1) * len(layout)]
         pc = (caches["unroll"][pi * len(layout): (pi + 1) * len(layout)]
               if caches is not None else None)
-        x, ncs = run_period(tuple(pp), x, tuple(pc) if pc else None)
+        x, ncs, a = run_period(tuple(pp), x, tuple(pc) if pc else None)
+        _add_aux(aux, a)
         ncs_all.extend(ncs)
-    return x, ({"unroll": tuple(ncs_all)} if want_cache else None)
+    return x, ({"unroll": tuple(ncs_all)} if want_cache else None), aux

@@ -2,6 +2,8 @@
 build), single-token decode, and the greedy ``generate`` loop."""
 from __future__ import annotations
 
+from typing import Any, Dict, Optional
+
 import torch
 
 from repro_torch.models.model import Model
@@ -9,7 +11,7 @@ from repro_torch.models.model import Model
 
 def make_prefill_step(model: Model, max_len: int):
     def prefill_step(params, batch):
-        logits, cache = model.apply(params, batch, mode="prefill", max_len=max_len)
+        logits, cache, _ = model.apply(params, batch, mode="prefill", max_len=max_len)
         return logits, cache
 
     return prefill_step
@@ -19,8 +21,8 @@ def make_decode_step(model: Model):
     def decode_step(params, cache, tokens):
         """tokens (B,1) → (next_token (B,1), logits (B,1,V), new_cache).
         The cache is updated in place."""
-        logits, new_cache = model.apply(params, {"tokens": tokens}, mode="decode",
-                                        cache=cache)
+        logits, new_cache, _ = model.apply(params, {"tokens": tokens}, mode="decode",
+                                           cache=cache)
         return _greedy(logits), logits, new_cache
 
     return decode_step
@@ -32,8 +34,10 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 @torch.inference_mode()
 def generate(model: Model, params, prompt_tokens, *, steps: int, max_len: int,
-             kv_store=None):
+             batch_extra: Optional[Dict[str, Any]] = None, kv_store=None):
     """Greedy generation loop; tokens (B, steps) int32 on the prompt's device.
+    ``batch_extra`` joins the prefill's batch (a vision model's
+    ``{"frontend": (B,F,D)}``).
 
     With ``kv_store`` (a ``repro_torch.serve.kvstore.KvCacheStore``) the
     loop runs disaggregated: if the store already holds a cache for this
@@ -43,6 +47,8 @@ def generate(model: Model, params, prompt_tokens, *, steps: int, max_len: int,
     fetched copy.
     """
     batch = {"tokens": prompt_tokens}
+    if batch_extra:
+        batch.update(batch_extra)
     prefill = make_prefill_step(model, max_len)
     decode = make_decode_step(model)
     if kv_store is not None and kv_store.contains(prompt_tokens):

@@ -2,7 +2,9 @@
 gradient accumulation over microbatches, optimizer update, metrics. State
 is a plain tree {"params", "opt", "step"} with ``step`` an int32 scalar
 tensor; the step updates params and moments in place (``optim``) and
-returns the state with the next step count."""
+returns the state with the next step count. Its metrics are
+``train_loss``'s (ce, zloss and the MoE aux losses moe_aux and moe_z, 0
+without MoE), loss and grad_norm, as the JAX step's."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional

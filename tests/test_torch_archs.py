@@ -106,7 +106,7 @@ def test_train_logits_match_jax(arch):
     assert len(tree_leaves(tp)) == len(jax.tree.leaves(jp))
     toks = _tokens(2, 24, seed=1)
     want, _, _ = _japply(jm, jp, toks, mode="train")
-    got, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="train")
+    got, _, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="train")
     _close(got, want)
 
 
@@ -139,14 +139,14 @@ def test_prefill_then_decode_match_jax(arch):
     jm, jp, tm, tp = _pair(arch)
     toks = _tokens(2, 17, seed=2)
     jl, jc, _ = _japply(jm, jp, toks[:, :16], mode="prefill", max_len=24)
-    tl, tc = tm.apply(tp, {"tokens": torch.from_numpy(toks[:, :16])}, mode="prefill",
-                      max_len=24)
+    tl, tc, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks[:, :16])}, mode="prefill",
+                         max_len=24)
     _close(tl, jl)
     for a, b in zip(jax.tree.leaves(jax.device_get(jc)), tree_leaves(_sorted(tc))):
         _close(b, a)
     nxt = toks[:, 16:]
     jd, _, _ = _japply(jm, jp, nxt, mode="decode", cache=jc)
-    td, tc2 = tm.apply(tp, {"tokens": torch.from_numpy(nxt)}, mode="decode", cache=tc)
+    td, tc2, _ = tm.apply(tp, {"tokens": torch.from_numpy(nxt)}, mode="decode", cache=tc)
     _close(td, jd)
     assert tc2["pos"].tolist() == [17, 17]
 
@@ -161,10 +161,10 @@ def test_glm4_decode_matches_train(scan_layers):
     params = model.init(torch.Generator("cpu").manual_seed(0))
     B, S = 2, 32
     toks = torch.from_numpy(_tokens(B, S, seed=4))
-    full, _ = model.apply(params, {"tokens": toks}, mode="train")
-    plog, cache = model.apply(params, {"tokens": toks[:, : S - 1]}, mode="prefill",
-                              max_len=S + 4)
-    dlog, _ = model.apply(params, {"tokens": toks[:, S - 1:]}, mode="decode", cache=cache)
+    full, _, _ = model.apply(params, {"tokens": toks}, mode="train")
+    plog, cache, _ = model.apply(params, {"tokens": toks[:, : S - 1]}, mode="prefill",
+                                 max_len=S + 4)
+    dlog, _, _ = model.apply(params, {"tokens": toks[:, S - 1:]}, mode="decode", cache=cache)
     assert float((plog[:, -1] - full[:, -2]).abs().max()) < 1e-3
     assert float((dlog[:, -1] - full[:, -1]).abs().max()) < 1e-3
 
@@ -211,8 +211,8 @@ def test_prefill_past_flash_threshold_matches_jax(arch, full_heads):
 
     L.ops.flash_attention = spy
     try:
-        tl, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="prefill",
-                         max_len=S + 4)
+        tl, _, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="prefill",
+                            max_len=S + 4)
     finally:
         L.ops.flash_attention = real
     cfg = tm.cfg

@@ -253,8 +253,8 @@ def test_generate_through_kill_quarantine_takeover_matches_jax():
     assert store.stats.puts == 1 and store.stats.fetches == 2
 
     # the prefill initiator dies mid-put of a second prompt's cache
-    _, cache2 = tm.apply(tp, {"tokens": torch.from_numpy(prompt2)}, mode="prefill",
-                         max_len=48)
+    _, cache2, _ = tm.apply(tp, {"tokens": torch.from_numpy(prompt2)}, mode="prefill",
+                            max_len=48)
     local = KvCacheStore(fs, chunk_blocks=1, device="cpu")
     with pytest.raises(ServingCrash):
         local.put(prompt2, cache2, failpoint="mid_put")

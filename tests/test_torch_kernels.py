@@ -74,6 +74,23 @@ def test_flash_matches_pallas(S, KV, G, D, blk, dtype, causal):
     _close(got, want, TOL[dtype])
 
 
+# the model families' head shapes: head_dim 96 with group 1
+# (phi-3-vision), group 3 at 64 (granite-moe), group 6 at 128 with softcap
+# 30 (grok-1)
+FAMILY_HEADS = [(4, 1, 96, 0.0), (2, 3, 64, 0.0), (1, 6, 128, 30.0)]
+
+
+@pytest.mark.parametrize("KV,G,D,softcap", FAMILY_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_family_heads_match_pallas(KV, G, D, softcap, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, 128, 128, KV, G, D, seed=D + G), dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=True, softcap=softcap,
+                                block_q=64, block_kv=64)
+    got = ops.flash_attention(tq, tk, tv, causal=True, softcap=softcap)
+    assert got.dtype == dtype and got.shape == (2, 128, KV, G, D)
+    _close(got, want, TOL[dtype])
+
+
 def test_flash_softcap_matches_pallas():
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 128, 128, 2, 2, 64, seed=5),
                                        torch.float32)
@@ -172,6 +189,16 @@ def test_flash_tensor_map_geometry(t, strides):
     which the bf16 kernel encodes its (D, heads, S, B) tensor maps."""
     assert fa._strides("q", t) == strides
     assert all(s * t.element_size() % 16 == 0 for s in strides)
+
+
+def test_flash_tensor_map_geometry_head_dim_96():
+    """head_dim 96: rows of 192 bytes, 16-byte multiples; the kernel maps
+    the true extent 96 and TMA zero-fills the second box's last 32
+    columns, so the wrapper walks the model layout in place, no copy."""
+    q, kv = _bf16((2, 300, 32, 1, 96)), _bf16((2, 300, 32, 96))
+    assert fa._strides("q", q) == (300 * 3072, 3072, 96)
+    assert fa._strides("k", kv) == (300 * 3072, 3072, 96)
+    assert 96 in fa._HEAD_DIMS
 
 
 @pytest.mark.parametrize("t", [
@@ -395,6 +422,25 @@ def test_flash_bf16_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap):
     before = fa.LAUNCHES
     got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=causal, softcap=softcap)
+    assert fa.LAUNCHES == before + 1
+    assert ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,KV,G,D,dtype,softcap", [
+    (1100, 4, 1, 96, torch.bfloat16, 0.0),   # phi-3-vision: head_dim 96, MHA
+    (77, 2, 1, 96, torch.bfloat16, 0.0),     # D 96 shorter than one tile
+    (300, 2, 2, 96, torch.float32, 0.0),     # D 96 in f32
+    (1000, 2, 3, 64, torch.bfloat16, 0.0),   # granite-moe: group 3
+    (700, 2, 6, 128, torch.bfloat16, 30.0),  # grok-1: group 6, softcap 30
+])
+def test_flash_kernel_family_shapes_on_card(S, KV, G, D, dtype, softcap):
+    _need_cuda()
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype)
+               for a in _qkv(2, S, S, KV, G, D, seed=S + G + D))
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=True, softcap=softcap)
+    errs, ok = ref.flash_attention_check(got, q, k, v, causal=True, softcap=softcap)
     assert fa.LAUNCHES == before + 1
     assert ok, errs
 

@@ -100,7 +100,7 @@ def test_train_logits_match_jax(scan_layers):
     jm, jp, tm, tp = _pair(scan_layers=scan_layers)
     toks = _tokens(2, 24, seed=1)
     want, _, _ = _japply(jm, jp, toks, mode="train")
-    got, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="train")
+    got, _, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="train")
     _close(got, want)
 
 
@@ -108,8 +108,8 @@ def test_prefill_then_decode_match_jax():
     jm, jp, tm, tp = _pair()
     toks = _tokens(2, 17, seed=2)
     jl, jc, _ = _japply(jm, jp, toks[:, :16], mode="prefill", max_len=24)
-    tl, tc = tm.apply(tp, {"tokens": torch.from_numpy(toks[:, :16])}, mode="prefill",
-                      max_len=24)
+    tl, tc, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks[:, :16])}, mode="prefill",
+                         max_len=24)
     _close(tl, jl)
     # the two caches agree by value, leaf for leaf
     for a, b in zip(jax.tree.leaves(jax.device_get(jc)),
@@ -118,7 +118,7 @@ def test_prefill_then_decode_match_jax():
                                    atol=TOL, rtol=TOL)
     nxt = toks[:, 16:]
     jd, _, _ = _japply(jm, jp, nxt, mode="decode", cache=jc)
-    td, tc2 = tm.apply(tp, {"tokens": torch.from_numpy(nxt)}, mode="decode", cache=tc)
+    td, tc2, _ = tm.apply(tp, {"tokens": torch.from_numpy(nxt)}, mode="decode", cache=tc)
     _close(td, jd)
     assert tc2["pos"].tolist() == [17, 17]
 
@@ -139,8 +139,8 @@ def test_prefill_past_flash_threshold_matches_jax():
 
     L.ops.flash_attention = spy
     try:
-        tl, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="prefill",
-                         max_len=S + 4)
+        tl, _, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="prefill",
+                            max_len=S + 4)
     finally:
         L.ops.flash_attention = real
     assert len(calls) == tm.cfg.num_layers and fa.LAUNCHES == before
@@ -157,11 +157,11 @@ def test_decode_matches_train(scan_layers):
     params = model.init(torch.Generator("cpu").manual_seed(0))
     B, S = 2, 32
     toks = torch.from_numpy(_tokens(B, S, seed=4))
-    full, _ = model.apply(params, {"tokens": toks}, mode="train")
-    plog, cache = model.apply(params, {"tokens": toks[:, : S - 1]}, mode="prefill",
-                              max_len=S + 4)
-    dlog, _ = model.apply(params, {"tokens": toks[:, S - 1:]}, mode="decode",
-                          cache=cache)
+    full, _, _ = model.apply(params, {"tokens": toks}, mode="train")
+    plog, cache, _ = model.apply(params, {"tokens": toks[:, : S - 1]}, mode="prefill",
+                                 max_len=S + 4)
+    dlog, _, _ = model.apply(params, {"tokens": toks[:, S - 1:]}, mode="decode",
+                             cache=cache)
     assert float((plog[:, -1] - full[:, -2]).abs().max()) < 1e-3
     assert float((dlog[:, -1] - full[:, -1]).abs().max()) < 1e-3
 
@@ -172,6 +172,6 @@ def test_init_cache_layout_and_unported_families():
     assert c["stack"]["scan"][0]["kv"]["k"].shape == (4, 2, 8, 2, 16)
     assert c["pos"].dtype == torch.int32
     with pytest.raises(NotImplementedError):
-        build_model(cfg.with_(block_pattern=("mamba",))).spec()
+        build_model(cfg.with_(block_pattern=("mlstm",))).spec()
     with pytest.raises(NotImplementedError):
         build_model(cfg.with_(encoder_decoder=True))
