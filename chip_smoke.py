@@ -16,7 +16,9 @@ exits non-zero without the final line:
                8,192, at the archs path's GQA groups of 16 and 4, at the
                families path's shapes (head_dim 96 with group 1 at S 5,120;
                group 3 at 64; group 6 at 128 with softcap 30; head_dim 96
-               in f32), non-causal, softcapped, ragged and in f32, each
+               in f32), at the recurrent_encdec path's (seamless's
+               encoder, non-causal over 3,072 frames, and its decoder, both
+               16 heads of 64), non-causal, softcapped, ragged and in f32, each
                with its time over SDPA's (softcapped: over a compiled
                ``flex_attention`` with a tanh ``score_mod``, held to the
                plain version too); the two-run merge at edges and 2^20
@@ -68,14 +70,29 @@ exits non-zero without the final line:
                (f32) in prefill and 16 decode steps against the same layer
                over the whole sequence; one AdamW step of granite-moe,
                grok-1 and jamba at ``:smoke`` on the card against the CPU;
-  9. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
+  9. recurrent_encdec — xLSTM and the audio encoder–decoder (f32 params,
+               bf16 compute, random weights): xlstm-125m at full width and
+               depth (mLSTM and sLSTM blocks, no attention) in memory, cold
+               and warm through the main path's store, tokens equal, fetched
+               caches (tuples of f32 recurrent state) the prefill's bit for
+               bit, and the sLSTM layers' share of one more prefill; one
+               mLSTM and one sLSTM block at its full widths (f32) in prefill
+               and 16 decode steps against the same block in train mode;
+               seamless-m4t-large-v2 at full width and depth (24 encoder
+               layers over 3,072 stub audio frames, 24 decoder layers with
+               cross-attention) in memory, cold and warm, fetched caches
+               bit-equal, cross half included, flash once an encoder layer
+               (non-causal: the encoder runs in train mode inside the
+               prefill) and once a decoder layer (causal) a prefill; one
+               AdamW step of both at ``:smoke`` on the card against the CPU;
+ 10. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
                synthetic corpus (sides 64-512) on a volume behind one
                storage engine: a third of each 256-image minibatch
                preprocessed by the engine's numpy stub, the rest on the card
                by one batch preprocess launch a minibatch; every batch bit
                for bit equal to a host numpy golden, before and after a
                checkpoint into OffloadDB, a remount and a resume;
- 10. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
+ 11. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
                keys of fig21's shape, a ~10 % filter: the pushdown scan,
                merged on the card by one k-way merge launch, equals the
                local scan, and its merge equals the plain merge bit for
@@ -83,24 +100,24 @@ exits non-zero without the final line:
                merge there orders nothing: streams of the scan's lengths
                with distinct prefixes go through ``merge_row_streams`` on
                the card against a plain host merge;
- 11. merge_at_path — the k-way merge timed at the path's shapes (a fetch's
+ 12. merge_at_path — the k-way merge timed at the path's shapes (a fetch's
                900 chunk indices in its runs and in 900 runs of one, the
                scan's and the distinct-prefix streams) against its plain
                version, one stable sort and, at the fetch, the two-run fold
                it replaces; each bit for bit;
- 12. train_small — one AdamW ``make_train_step`` step of qwen3-1.7b:smoke
+ 13. train_small — one AdamW ``make_train_step`` step of qwen3-1.7b:smoke
                (f32) at S = 2,304, past the flash threshold, on the card
                against the same step on the CPU: loss, grad_norm, every
                param and moment; the flash kernel must not launch (the
                train path runs the differentiable chunked twin);
- 13. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
+ 14. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
                width with prep ingest: 12 steps, a checkpoint into OffloadDB
                every 4, a crash after step 8, recover, restore, resume; the
                resumed losses bit for bit those of an uninterrupted run, the
                restored ingest state the one saved, every minibatch the
                crash run consumed bit for bit the host numpy golden (out
                32), one preprocess launch per minibatch, no merge launch;
- 14. train     — qwen3-1.7b at full width (28 layers, bf16 compute over f32
+ 15. train     — qwen3-1.7b at full width (28 layers, bf16 compute over f32
                params, remat) at S 4,096, batch 2: the first three AdamW
                steps of ``for_config``'s schedule on one batch (finite,
                falling loss), then one at microbatches 2.
@@ -181,6 +198,10 @@ FRONTEND_SEED = 2
 GROK_LAYERS, PEAK_LIMIT = 4, 70e9
 JAMBA_SMOKE_S, SMOKE_PROMPT = 2048, 256
 FAMILY_TRAIN_S = 256
+# recurrent_encdec path: the JAX package's n_params() at full width;
+# seamless's stub audio frontend is its config's frontend_seq frames
+RECURRENT_ENCDEC = {"xlstm-125m": 188_954_184, "seamless-m4t-large-v2": 1_632_256_000}
+SEAMLESS_FRAMES = 3072
 
 
 def emit(phase: str, **kw) -> None:
@@ -376,6 +397,12 @@ def phase_kernels():
         ("granite_moe_g3_bf16", BATCH, PROMPT, 8, 3, 64, torch.bfloat16, True, 0.0),
         ("grok_g6_softcap_bf16", BATCH, PROMPT, 8, 6, 128, torch.bfloat16, True, 30.0),
         ("d96_f32", 1, 512, 2, 2, 96, torch.float32, True, 0.0),
+        # the recurrent_encdec path's: seamless-m4t-large-v2's encoder (16 heads
+        # of 64, non-causal over its 3,072 frames) and its decoder's causal
+        # self-attention over the prompt
+        ("seamless_enc_noncausal_g1_d64_bf16", BATCH, SEAMLESS_FRAMES, 16, 1, 64,
+         torch.bfloat16, False, 0.0),
+        ("seamless_dec_g1_d64_bf16", BATCH, PROMPT, 16, 1, 64, torch.bfloat16, True, 0.0),
     ]
 
     def flash_case(name, B, S, KV, G, D, dt, causal, cap):
@@ -422,7 +449,8 @@ def phase_kernels():
         "shape", "dtype", "softcap", "max_abs_err", "rel_err", "row_rel_err", "tol", "ms",
         "plain_ms", "library", "library_ms", "bound_ms", "bound_by")}
         for name in ("glm4_g16_bf16", "kv8_g4_bf16", "phi3v_d96_g1_bf16",
-                     "granite_moe_g3_bf16", "grok_g6_softcap_bf16", "d96_f32")}
+                     "granite_moe_g3_bf16", "grok_g6_softcap_bf16", "d96_f32",
+                     "seamless_enc_noncausal_g1_d64_bf16", "seamless_dec_g1_d64_bf16")}
 
     merged = {}
     g = torch.Generator("cuda").manual_seed(7)
@@ -1114,11 +1142,13 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
     the first call's out), then in memory, and with ``store`` cold and
     warm; tokens in range and equal across the runs, the prefill's
     last-position and every decode step's logits finite, flash once per
-    attention layer a prefill when the prefill's length passes
-    ``layers.FLASH_THRESHOLD`` (else never) at the shape of the model's
-    attention, every fetched cache the prefill's bit for bit, the merge
-    once a fetch that arrived in more than one run. ``extra`` joins the
-    prefill's batch (a vision model's frontend). Returns the record."""
+    attention layer a prefill when that stack's length passes
+    ``layers.FLASH_THRESHOLD`` (else never) at the shape of its attention:
+    causal over the decoder's prompt (a vision model's frontend before it),
+    and for an encoder–decoder also non-causal over the encoder's frames;
+    every fetched cache the prefill's bit for bit, the merge once a fetch
+    that arrived in more than one run. ``extra`` joins the prefill's batch
+    (a vision or audio model's frontend). Returns the record."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1127,10 +1157,19 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
     from repro_torch.models.transformer import n_periods, period_layout
     from repro_torch.serve import generate
 
-    S = cfg.frontend_seq + prompt.shape[1]
+    S = (cfg.frontend_seq if cfg.frontend == "vision" else 0) + prompt.shape[1]
     max_len = S + STEPS
-    attn_layers = n_periods(cfg) * sum(kind == "attn" for kind, _ in period_layout(cfg))
-    flash_per_prefill = attn_layers if S > layers.FLASH_THRESHOLD else 0
+    attn_kinds = sum(kind == "attn" for kind, _ in period_layout(cfg))
+    heads = (cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim)
+    want_calls = {}  # (q shape, softcap, causal) -> launches a prefill
+    if S > layers.FLASH_THRESHOLD:
+        want_calls[((BATCH, S) + heads, cfg.attn_logit_softcap, True)] = (
+            n_periods(cfg) * attn_kinds)
+    if cfg.encoder_decoder and cfg.frontend_seq > layers.FLASH_THRESHOLD:
+        want_calls[((BATCH, cfg.frontend_seq) + heads, cfg.attn_logit_softcap, False)] = (
+            n_periods(cfg, cfg.num_encoder_layers) * attn_kinds)
+    want_calls = {key: n for key, n in want_calls.items() if n}
+    flash_per_prefill = sum(want_calls.values())
     fa0 = fa.LAUNCHES
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1145,7 +1184,7 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
           f"want {flash_per_prefill}")
     timed = _Timed()
     apply = timed.wrap(lambda *a, **kw: kw.get("mode", "train"), model.apply)
-    finite, flash_calls = [], set()
+    finite, flash_calls = [], {}
 
     def apply_spy(*a, **kw):
         logits, cache, aux = apply(*a, **kw)
@@ -1153,7 +1192,8 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
         return logits, cache, aux
 
     def flash_spy(q, k, v, **kw):
-        flash_calls.add((tuple(q.shape), kw.get("softcap", 0.0)))
+        key = (tuple(q.shape), kw.get("softcap", 0.0), kw.get("causal", True))
+        flash_calls[key] = flash_calls.get(key, 0) + 1
         return flash_entry(q, k, v, **kw)
 
     model.apply = apply_spy
@@ -1215,10 +1255,10 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
             check(runs[label]["flash_launches"] == flash_per_prefill,
                   f"{cfg.name} {label}: flash launched {runs[label]['flash_launches']} "
                   f"times, want {flash_per_prefill}")
-    if flash_per_prefill:
-        shape = (BATCH, S, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim)
-        check(flash_calls == {(shape, cfg.attn_logit_softcap)},
-              f"{cfg.name}: flash called at {flash_calls}, want {shape}")
+    prefills = 2 if store is not None else 1  # in memory, and cold
+    want_flash = {key: n * prefills for key, n in want_calls.items()}
+    check(flash_calls == want_flash,
+          f"{cfg.name}: flash calls {flash_calls}, want {want_flash}")
     if store is not None:
         check(runs["warm"]["flash_launches"] == 0, f"{cfg.name}: the warm run ran a prefill")
         check(len(prefilled) == 1 and fetched_equal == [True, True],
@@ -1231,7 +1271,8 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
     return {"runs": runs, "launches": launches, "tokens": want.tolist(),
             "first_prefill_ms": first_prefill_ms, "flash_per_prefill": flash_per_prefill,
             "finite_logit_calls": len(finite), "seq": S,
-            "flash_shapes": sorted([list(sh), cap] for sh, cap in flash_calls),
+            "flash_calls": sorted([list(sh), cap, causal, n]
+                                  for (sh, cap, causal), n in flash_calls.items()),
             "fetched_cache_bit_equal": fetched_equal or None}
 
 
@@ -1297,11 +1338,13 @@ def _free():
     torch.cuda.reset_peak_memory_stats()
 
 
-def _family_arch(name, cfg, store=None, *, frontend=False, n_params=None):
+def _family_arch(name, cfg, store=None, *, frontend=False, n_params=None, probe=None):
     """``arch_run`` for ``cfg`` on the card: random weights from seed 0,
     BATCH prompts of PROMPT tokens (SMOKE_PROMPT at ``:smoke``) from seed
     1, and with ``frontend`` a stub of frontend_seq embeddings from seed
-    FRONTEND_SEED. Returns the record, the arch's peak memory with it."""
+    FRONTEND_SEED. ``probe(model, params, prompt)``, if given, runs after
+    and its dict joins the record. Returns the record, the arch's peak
+    memory with it."""
     import torch
 
     from repro_torch.models.model import build_model
@@ -1331,6 +1374,8 @@ def _family_arch(name, cfg, store=None, *, frontend=False, n_params=None):
                param_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)),
                init_s=init_s, max_memory_allocated=torch.cuda.max_memory_allocated(),
                cache_bytes=store.stats.put_bytes if store else None)
+    if probe is not None:
+        rec.update(probe(model, params, prompt))
     emit("family", model=name, **rec)
     del model, params, prompt, extra
     return rec
@@ -1516,8 +1561,163 @@ def phase_families():
     _free()
     return launches
 
-
 # ------------------------------------------------------------ phase 9
+def _slstm_share(model, params, prompt):
+    """One more prefill of ``prompt``, each sLSTM layer timed alone (a
+    device synchronise before and after): its share of the prefill."""
+    import torch
+
+    from repro_torch.models import xlstm
+
+    real, spent = xlstm.apply_slstm, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    xlstm.apply_slstm = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model.apply(params, {"tokens": prompt}, mode="prefill",
+                        max_len=prompt.shape[1] + STEPS)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        xlstm.apply_slstm = real
+    return {"slstm_probe": {"prefill_ms": total * 1e3, "slstm_ms": sum(spent) * 1e3,
+                            "slstm_layers": len(spent), "slstm_share": sum(spent) / total}}
+
+
+def _xlstm_layers_full_width():
+    """One mLSTM and one sLSTM block at xlstm-125m's full widths (d_model
+    768, 4 heads; mLSTM inner 1,536 in heads of 384, sLSTM heads of 192),
+    f32, random params from seed 0, input from seed 3: a prefill of PROMPT
+    tokens and STEPS decode steps from its cache, held at a relative 1e-3
+    (Frobenius) against the same block in train mode over PROMPT + one
+    mLSTM chunk (PROMPT - STEPS is no multiple of the chunk, which the
+    chunkwise cell needs): for the mLSTM the chunkwise form against the
+    recurrence on the card."""
+    import torch
+
+    from repro_torch.models import xlstm
+    from repro_torch.models.config import get_config
+    from repro_torch.models.schema import init_tree
+
+    _free()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-125m").with_(compute_dtype=torch.float32)
+    S_all = PROMPT + xlstm.MLSTM_CHUNK
+    x = torch.randn((BATCH, S_all, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    out = {}
+    for kind, spec, apply in (("mlstm", xlstm.mlstm_spec, xlstm.apply_mlstm),
+                              ("slstm", xlstm.slstm_spec, xlstm.apply_slstm)):
+        params = init_tree(spec(cfg), torch.Generator("cuda").manual_seed(0), torch.float32)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, _ = apply(params, cfg, x, mode="train")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y_pre, cache = apply(params, cfg, x[:, :PROMPT], mode="prefill")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ys = []
+            for t in range(PROMPT, PROMPT + STEPS):
+                y, cache = apply(params, cfg, x[:, t:t + 1], cache=cache, mode="decode")
+                ys.append(y)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            out[kind] = {"train_ms": (t1 - t0) * 1e3, "train_seq": S_all,
+                         "prefill_ms": (t2 - t1) * 1e3,
+                         "decode_ms_per_step": (t3 - t2) * 1e3 / STEPS,
+                         "prefill_rel_err": _rel_err(y_pre, want[:, :PROMPT]),
+                         "decode_rel_err": _rel_err(torch.cat(ys, 1),
+                                                    want[:, PROMPT:PROMPT + STEPS])}
+        del params, want, y_pre, cache, ys
+    for kind, r in out.items():
+        check(r["prefill_rel_err"] <= 1e-3 and r["decode_rel_err"] <= 1e-3,
+              f"full-width {kind} block: prefill/decode against train mode: {r}")
+    rec = {"d_model": cfg.d_model, "heads": cfg.num_heads, "batch": BATCH, "prompt": PROMPT,
+           "steps": STEPS, "chunk": xlstm.MLSTM_CHUNK,
+           "tol": "rel 1e-3 (f32) against train mode", **out,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit("xlstm_layers", **rec)
+    del x
+    return rec
+
+
+def phase_recurrent_encdec():
+    """xLSTM and the audio encoder–decoder on the card, one arch after the
+    other (each freed before the next); f32 params, bf16 compute unless
+    said: xlstm-125m at full width and depth (12 layers in 3 periods of
+    mLSTM, mLSTM, mLSTM, sLSTM) in memory, cold and warm through the main
+    path's store, with the sLSTM layers' share of a prefill; one mLSTM and
+    one sLSTM block at full width in f32 against train mode;
+    seamless-m4t-large-v2 at full width and depth (24 encoder layers over
+    SEAMLESS_FRAMES stub audio frames from seed FRONTEND_SEED, 24 decoder
+    layers with cross-attention) in memory, cold and warm, its cache's
+    cross half bit-equal too, flash once an encoder layer (non-causal) and
+    once a decoder layer (causal) a prefill; one AdamW step of both at
+    ``:smoke`` on the card against the CPU (``train_card_vs_cpu``, AdamW's
+    eps 1e-6 as for the families)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.config import get_config
+    from repro_torch.train import optim
+
+    out = {}
+    xl = get_config("xlstm-125m")
+    out["xlstm-125m"] = _family_arch("xlstm-125m", xl, serving_store(),
+                                     n_params=RECURRENT_ENCDEC["xlstm-125m"],
+                                     probe=_slstm_share)
+    layers = _xlstm_layers_full_width()
+    sm = get_config("seamless-m4t-large-v2")
+    check(sm.frontend_seq == SEAMLESS_FRAMES, f"seamless frontend_seq {sm.frontend_seq}")
+    out["seamless-m4t-large-v2"] = _family_arch(
+        "seamless-m4t-large-v2", sm, serving_store(), frontend=True,
+        n_params=RECURRENT_ENCDEC["seamless-m4t-large-v2"])
+    _free()
+    lr = 3e-4
+    trains = {}
+    for name in RECURRENT_ENCDEC:
+        cfg = get_config(f"{name}:smoke").with_(compute_dtype=torch.float32)
+        extra = None
+        if cfg.encoder_decoder:
+            extra = {"frontend": np.random.default_rng(FRONTEND_SEED).standard_normal(
+                (2, cfg.frontend_seq, cfg.d_model)).astype(np.float32)}
+        trains[name] = train_card_vs_cpu(cfg, FAMILY_TRAIN_S, optim.adamw(lr=lr, eps=1e-6),
+                                         lr, extra)
+        emit("family_train", **trains[name])
+    launches = {k: sum(r["launches"][k] for r in out.values())
+                for k in ("flash_attention", "merge")}
+    emit("recurrent_encdec", batch=BATCH, prompt=PROMPT, steps=STEPS, launches=launches,
+         n_params={k: v["n_params"] for k, v in out.items()},
+         prefill_ms={k: v["runs"]["in_memory"]["prefill_ms"] for k, v in out.items()},
+         first_prefill_ms={k: v["first_prefill_ms"] for k, v in out.items()},
+         decode_tok_per_s={k: {r: v["runs"][r]["decode_tok_per_s"]
+                               for r in ("in_memory", "cold", "warm")}
+                           for k, v in out.items()},
+         max_memory_allocated={k: v["max_memory_allocated"] for k, v in out.items()},
+         cache_bytes={k: v["cache_bytes"] for k, v in out.items()},
+         put_ms={k: v["runs"]["cold"]["put_ms"] for k, v in out.items()},
+         fetch_ms={k: {r: v["runs"][r]["fetch_ms"] for r in ("cold", "warm")}
+                   for k, v in out.items()},
+         flash_per_prefill={k: v["flash_per_prefill"] for k, v in out.items()},
+         slstm_probe=out["xlstm-125m"]["slstm_probe"], xlstm_layers=layers,
+         train_max_abs_err={k: v["max_abs_err"] for k, v in trains.items()})
+    _free()
+    return launches
+
+
+# ------------------------------------------------------------ phase 10
 def _prep_plane(dev=None):
     """A volume of 2^17 blocks behind one storage engine that serves
     ``stub_preprocess`` (and OffloadDB's stubs); with ``dev`` it remounts
@@ -1674,7 +1874,7 @@ def phase_prep():
     return launches
 
 
-# ------------------------------------------------------------ phase 10
+# ------------------------------------------------------------ phase 11
 class _MergeRecord:
     """While in use, records the input and the result of every
     ``ops.merge_runs`` call; the call itself is the path's, so the kernel's
@@ -1819,7 +2019,7 @@ def phase_pushdown():
                       "scan_distinct_prefixes": distinct_merges.calls[0][0]}
 
 
-# ------------------------------------------------------------ phases 12-14
+# ------------------------------------------------------------ phases 13-15
 @contextlib.contextmanager
 def deterministic():
     """``torch.use_deterministic_algorithms(True)`` for the block: an op
@@ -1844,14 +2044,16 @@ def _max_err(got, want) -> float:
     return (got.detach().cpu().double() - want.detach().double()).abs().max().item()
 
 
-def train_card_vs_cpu(cfg, seq: int, opt, lr: float) -> dict:
+def train_card_vs_cpu(cfg, seq: int, opt, lr: float, extra=None) -> dict:
     """One AdamW ``make_train_step`` step of ``cfg`` (f32) at ``seq`` on the
     card against the same step on the CPU from the same params, under
     ``deterministic()``: loss, grad_norm and the other metrics within a
     relative 1e-4 (f32 sums in another order), AdamW's m (0.1 × the
     clipped gradient) and v within 1e-4 of each leaf's largest value, every
     param within lr / 10 (a lost gradient moves a param by lr × sign(g) on
-    one side only). Returns the record, with the card's flash launches."""
+    one side only). ``extra`` (numpy arrays, such as an audio model's
+    frontend) joins the batch. Returns the record, with the card's flash
+    launches."""
     import torch
 
     from repro_torch.data.pipeline import TokenPipeline
@@ -1863,7 +2065,7 @@ def train_card_vs_cpu(cfg, seq: int, opt, lr: float) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     model = build_model(cfg)
     params = model.init(torch.Generator("cpu").manual_seed(0))
-    b = TokenPipeline(cfg.vocab_size, 2, seq).next_batch()
+    b = dict(TokenPipeline(cfg.vocab_size, 2, seq).next_batch(), **(extra or {}))
     step = make_train_step(model, opt)
     states, metrics, launches = {}, {}, {}
     for dev in ("cuda", "cpu"):
@@ -2134,6 +2336,7 @@ def main() -> int:
     failover_launches = timed_phase("failover", phase_failover, main_tokens.cpu())
     arch_launches = timed_phase("archs", phase_archs)
     family_launches = timed_phase("families", phase_families)
+    recurrent_launches = timed_phase("recurrent_encdec", phase_recurrent_encdec)
     prep_launches = timed_phase("prep", phase_prep)
     pushdown_launches, scans = timed_phase("pushdown", phase_pushdown)
     merges = timed_phase("merge_at_path", time_merge_at_path, nchunks, nruns, scans)
@@ -2152,6 +2355,7 @@ def main() -> int:
                               "failover": failover_launches["flash_attention"],
                               "archs": arch_launches["flash_attention"],
                               "families": family_launches["flash_attention"],
+                              "recurrent_encdec": recurrent_launches["flash_attention"],
                               "train_small": small_flash,
                               "train_e2e": e2e_launches["flash_attention"],
                               "train": train_flash},
@@ -2168,6 +2372,7 @@ def main() -> int:
                               "failover": failover_launches["merge"],
                               "archs": arch_launches["merge"],
                               "families": family_launches["merge"],
+                              "recurrent_encdec": recurrent_launches["merge"],
                               "pushdown": pushdown_launches,
                               "train_e2e": e2e_launches["merge"]},
          "ms": mg_rec["ms"], "plain_ms": mg_rec["plain_ms"], "bound_ms": mg_rec["bound_ms"],

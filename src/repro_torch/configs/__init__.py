@@ -1,8 +1,9 @@
 """Architecture registry: importing this package registers the ported
 architectures (``qwen3-1.7b``, ``glm4-9b``, ``granite-3-8b``,
 ``mistral-nemo-12b``, ``phi-3-vision-4.2b``, ``granite-moe-3b-a800m``,
-``grok-1-314b`` and ``jamba-1.5-large-398b``, each with its ``:smoke``
-variant, and ``paper-lm-100m``)."""
+``grok-1-314b``, ``jamba-1.5-large-398b``, ``xlstm-125m`` and
+``seamless-m4t-large-v2``, each with its ``:smoke`` variant, and
+``paper-lm-100m``): all ten archs of the JAX package and its paper LM."""
 from repro_torch.configs import (  # noqa: F401
     glm4_9b,
     granite_3_8b,
@@ -13,4 +14,6 @@ from repro_torch.configs import (  # noqa: F401
     paper_lm,
     phi_3_vision_4_2b,
     qwen3_1_7b,
+    seamless_m4t_large_v2,
+    xlstm_125m,
 )

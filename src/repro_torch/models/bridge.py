@@ -4,11 +4,14 @@
 ``jax.device_get``), so the port never imports jax. Both layouts carry
 over as they are: ``{"scan": period}`` with leaves stacked over the
 periods, and ``{"unroll": (layer, …)}``, whatever the layers hold
-(attention or mamba, a dense MLP or MoE experts). Every leaf is checked
+(attention, mamba, mLSTM or sLSTM with its (4, H, dh, dh) recurrent
+weights, a decoder's cross-attention, a dense MLP or MoE experts), and an
+encoder–decoder's ``enc_stack`` and ``enc_ln``. Every leaf is checked
 against the port's own spec for the same config. ``from_jax_state``
 carries a whole train state over: params, the optimizer's moment trees
 (which mirror the params) and the step count. ``from_jax_cache`` carries a
-decode cache over (attention KV buffers, mamba conv and SSM states), each
+decode cache over (attention KV buffers and a decoder's cross K/V, mamba
+conv and SSM states, the xLSTM blocks' conv states and state tuples), each
 leaf checked against ``Model.cache_spec`` in shape and dtype.
 """
 from __future__ import annotations

@@ -31,6 +31,14 @@ class MambaConfig:
 
 
 @dataclass(frozen=True)
+class XLSTMConfig:
+    mlstm_proj_factor: float = 2.0
+    slstm_proj_factor: float = 4.0 / 3.0
+    conv_width: int = 4
+    slstm_every: int = 4  # every k-th block is sLSTM (rest mLSTM)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | ssm | hybrid | moe | audio | vlm
@@ -48,7 +56,7 @@ class ModelConfig:
     moe_every: int = 0
     moe_offset: int = 1
     mamba: Optional[MambaConfig] = None
-    xlstm: Optional[Any] = None  # the xLSTM blocks are not ported yet
+    xlstm: Optional[XLSTMConfig] = None
     # attention details
     mlp_kind: str = "swiglu"  # swiglu | gelu
     norm_kind: str = "rmsnorm"  # rmsnorm | layernorm

@@ -1,14 +1,19 @@
-"""Core layers (port of ``src/repro/models/layers.py``): norms, RoPE, GQA
-attention (train/prefill/decode), the swiglu and gelu MLPs. The layernorm
-norm kind is not ported yet and raises ``NotImplementedError``.
+"""Core layers (port of ``src/repro/models/layers.py``): RMSNorm and
+LayerNorm, RoPE, GQA self-attention (causal or not; train/prefill/decode),
+decoder→encoder cross-attention, the swiglu and gelu MLPs.
 
-Attention has three paths:
+Self-attention has three paths:
   * einsum attention (plain torch) for seq <= FLASH_THRESHOLD and all decode;
-  * above it, in train mode or while autograd records, the chunked
-    online-softmax twin ``_flash_attention_qchunked`` (plain torch, each
-    KV-block step rematerialised), which is what the JAX model runs there;
-  * above it otherwise (prefill), the Hopper flash-attention kernel
-    (``kernels.ops.flash_attention``), which is forward only.
+  * above it, while autograd records, and for causal attention in train
+    mode, the chunked online-softmax twin ``_flash_attention_qchunked``
+    (plain torch, each KV-block step rematerialised), which is what the JAX
+    model runs there;
+  * above it otherwise, the Hopper flash-attention kernel
+    (``kernels.ops.flash_attention``), which is forward only: a prefill's
+    attention, and the encoder's non-causal attention, which JAX runs in
+    train mode inside every prefill.
+Above the threshold the JAX package declares the chunked scan's FLOPs
+(``attention_scan_flops``); the port declares the same whichever path runs.
 """
 from __future__ import annotations
 
@@ -39,16 +44,28 @@ def remat(fn, *args):
 
 # ------------------------------------------------------------------ norms
 def norm_spec(cfg) -> dict:
-    if cfg.norm_kind != "rmsnorm":
-        raise NotImplementedError(f"norm_kind {cfg.norm_kind!r} is not ported yet")
-    return {"scale": ParamSpec((cfg.d_model,), ("embed",), init="ones")}
+    d = cfg.d_model
+    if cfg.norm_kind == "layernorm":
+        return {
+            "scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros"),
+        }
+    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
 
 
 def apply_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm in f32, keeping x's dtype."""
+    """LayerNorm when ``p`` has a bias, else RMSNorm; in f32, keeping x's
+    dtype."""
     xf = x.float()
-    ms = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * p["scale"].float()).to(x.dtype)
+    if "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
 
 
 def head_norm_spec(cfg) -> dict:  # per-head qk-norm (qwen3 style)
@@ -90,7 +107,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # -------------------------------------------------------------- attention
 # Q projections live in the GQA (KV, G) layout — wq (d, KV, G, hd) — as in
 # the JAX package, so the flash kernel reads q (B,S,KV,G,D) in place.
-def attention_spec(cfg) -> dict:
+def attention_spec(cfg, cross: bool = False) -> dict:
     d, kv, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
     g = cfg.q_per_kv
     spec = {
@@ -105,7 +122,7 @@ def attention_spec(cfg) -> dict:
             fan_in_axis=-2,
         ),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         spec["qnorm"] = head_norm_spec(cfg)
         spec["knorm"] = head_norm_spec(cfg)
     return spec
@@ -197,32 +214,44 @@ def _flash_attention_qchunked(qg, k, v, *, causal, softcap, block_q=FLASH_BLOCK_
         for q0 in range(0, Sq, block_q)], dim=1)
 
 
+def attention_scan_flops(B, Sq, Sk, H, D, causal: bool) -> float:
+    """Analytic FLOPs of the chunked-attention scan (QK^T + PV), which the
+    JAX package declares for its cost-analysis correction. Causal halves
+    the effective area."""
+    area = Sq * Sk * (0.5 if causal else 1.0)
+    return 4.0 * B * H * area * D
+
+
 def apply_attention(
     p: dict,
     cfg,
     x: torch.Tensor,
     *,
     positions: torch.Tensor,
+    causal: bool = True,
+    kv_src: Optional[torch.Tensor] = None,  # cross-attention source
     cache: Optional[dict] = None,  # {"k","v","len"} decode cache
     mode: str = "train",
     max_len: Optional[int] = None,  # prefill: KV-buffer headroom (>= S)
 ):
-    """Causal self-attention. Returns (out, new_cache). Decode writes the
-    new key/value into the cache buffers in place (the JAX version returns
+    """Returns (out, new_cache, scan_flops). Decode writes the new
+    key/value into the cache buffers in place (the JAX version returns
     updated copies)."""
     B, S, _ = x.shape
     q = torch.einsum("bsd,dkgh->bskgh", x, p["wq"].to(x.dtype))  # (B,S,KV,G,hd)
-    k = torch.einsum("bsd,dkh->bskh", x, p["wk"].to(x.dtype))  # (B,S,KV,hd)
-    v = torch.einsum("bsd,dkh->bskh", x, p["wv"].to(x.dtype))
+    src = x if kv_src is None else kv_src
+    k = torch.einsum("bsd,dkh->bskh", src, p["wk"].to(x.dtype))  # (B,Sk,KV,hd)
+    v = torch.einsum("bsd,dkh->bskh", src, p["wv"].to(x.dtype))
     if "qnorm" in p:
         q = apply_head_norm(p["qnorm"], q)
         k = apply_head_norm(p["knorm"], k)
-    if cfg.rotary_pct > 0:
+    if kv_src is None and cfg.rotary_pct > 0:  # self-attention: RoPE
         cos, sin = rope_freqs(cfg, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
     new_cache = None
+    scan_flops = 0.0
     if mode == "decode":
         if cache is None or S != 1:
             raise ValueError("decode takes one token per sequence and a cache")
@@ -237,11 +266,11 @@ def apply_attention(
         )
     else:
         if mode == "prefill":
-            L = max_len or S
+            L = k.shape[1] + (max_len or S) - S
             kc = k.new_zeros((B, L) + tuple(k.shape[2:]))
             vc = v.new_zeros((B, L) + tuple(v.shape[2:]))
-            kc[:, :S] = k
-            vc[:, :S] = v
+            kc[:, :k.shape[1]] = k
+            vc[:, :v.shape[1]] = v
             new_cache = {
                 "k": kc,
                 "v": vc,
@@ -249,15 +278,44 @@ def apply_attention(
             }
         records = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                                or v.requires_grad)
-        if S > FLASH_THRESHOLD and (mode == "train" or records):
-            out = _flash_attention_qchunked(q, k, v, causal=True,
-                                            softcap=cfg.attn_logit_softcap)
-        elif S > FLASH_THRESHOLD:
-            out = ops.flash_attention(q, k, v, causal=True,
-                                      softcap=cfg.attn_logit_softcap)
+        if S > FLASH_THRESHOLD and kv_src is None:
+            # the twin where autograd records, and for a decoder's train-mode
+            # forward (causal) even where it does not; non-causal
+            # self-attention is the encoder's, which JAX runs in train mode
+            # inside every prefill: there the forward-only kernel serves it
+            if records or (mode == "train" and causal):
+                out = _flash_attention_qchunked(q, k, v, causal=causal,
+                                                softcap=cfg.attn_logit_softcap)
+            else:
+                out = ops.flash_attention(q, k, v, causal=causal,
+                                          softcap=cfg.attn_logit_softcap)
+            scan_flops = attention_scan_flops(B, S, S, cfg.num_heads, cfg.head_dim, causal)
         else:
-            out = _einsum_attention(q, k, v, causal=True,
+            out = _einsum_attention(q, k, v, causal=causal,
                                     softcap=cfg.attn_logit_softcap)
+    y = torch.einsum("bskgd,kgdm->bsm", out, p["wo"].to(x.dtype))
+    return y, new_cache, scan_flops
+
+
+def apply_cross_attention(p, cfg, x, enc_out, *, cache=None, mode="train"):
+    """Decoder→encoder cross-attention (no RoPE, non-causal). Returns (out,
+    new_cache).
+
+    prefill: computes K/V from ``enc_out`` and returns them as the cache.
+    decode: reuses the cached K/V and passes the cache through; nothing
+    writes into it.
+    """
+    q = torch.einsum("bsd,dkgh->bskgh", x, p["wq"].to(x.dtype))
+    if mode == "decode" and cache is not None:
+        k, v = cache["k"], cache["v"]
+        new_cache = cache
+    else:
+        if enc_out is None:
+            raise ValueError("cross-attention needs enc_out outside decode")
+        k = torch.einsum("bsd,dkh->bskh", enc_out, p["wk"].to(x.dtype))
+        v = torch.einsum("bsd,dkh->bskh", enc_out, p["wv"].to(x.dtype))
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    out = _einsum_attention(q, k, v, causal=False, softcap=0.0)
     y = torch.einsum("bskgd,kgdm->bsm", out, p["wo"].to(x.dtype))
     return y, new_cache
 

@@ -10,8 +10,10 @@ cross-entropy over sequence chunks (``chunked_lm_loss``), never holding
 the (B, S, V) logits, and adds the MoE aux losses. A vision model takes
 its stub frontend embeddings (B, frontend_seq, D) as ``batch["frontend"]``,
 prepended to the tokens outside decode; its loss covers the text positions
-only. The encoder–decoder model is not ported yet and raises
-``NotImplementedError``.
+only. An audio encoder–decoder takes them as the encoder's input
+(``encode``, outside decode); the decoder's cross-attention reads the
+encoder's output, and the encoder's aux losses come back ``enc_``-prefixed
+and join the loss.
 
 Parameters are plain nested dicts/tuples of tensors with the JAX package's
 tree structure (``models.bridge`` converts a JAX tree into one).
@@ -31,9 +33,6 @@ from repro_torch.tree import tree_map
 
 class Model:
     def __init__(self, cfg):
-        if cfg.encoder_decoder or cfg.frontend not in ("none", "vision"):
-            raise NotImplementedError("encoder–decoder models and the audio "
-                                      "frontend are not ported yet")
         self.cfg = cfg
 
     # ------------------------------------------------------------- params
@@ -43,11 +42,14 @@ class Model:
         spec: Dict[str, Any] = {
             "embed": ParamSpec((v, d), ("vocab_table", "embed_shard"), scale=1.0,
                                fan_in_axis=-1),
-            "stack": T.stack_spec(cfg),
+            "stack": T.stack_spec(cfg, decoder=cfg.encoder_decoder),
             "final_ln": norm_spec(cfg),
         }
         if not cfg.tie_embeddings:
             spec["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
+        if cfg.encoder_decoder:
+            spec["enc_stack"] = T.stack_spec(cfg, cfg.num_encoder_layers)
+            spec["enc_ln"] = norm_spec(cfg)
         return spec
 
     def init(self, gen: torch.Generator):
@@ -60,7 +62,8 @@ class Model:
     # -------------------------------------------------------------- cache
     def cache_spec(self, batch: int, max_len: int):
         return {
-            "stack": T.stack_cache_spec(self.cfg, batch, max_len),
+            "stack": T.stack_cache_spec(self.cfg, batch, max_len,
+                                        decoder=self.cfg.encoder_decoder),
             "pos": ((batch,), torch.int32),
         }
 
@@ -80,6 +83,26 @@ class Model:
             return x @ params["embed"].to(cfg.compute_dtype).T
         return x @ params["lm_head"].to(cfg.compute_dtype)
 
+    def encode(self, params, frames):
+        """frames (B,F,D) stub embeddings → (enc_out (B,F,D), aux). The
+        encoder's stack runs in train mode with non-causal self-attention,
+        as JAX's; above the flash threshold that attention launches the
+        flash kernel unless autograd records (``layers.apply_attention``)."""
+        cfg = self.cfg
+        x = frames.to(cfg.compute_dtype)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        x, _, aux = T.apply_stack(params["enc_stack"], cfg, x, positions=pos,
+                                  mode="train", causal=False)
+        return apply_norm(params["enc_ln"], x), aux
+
+    def _encoded(self, params, batch, mode):
+        """(enc_out, {"enc_…": aux}) of an encoder–decoder outside decode,
+        else (None, {})."""
+        if not self.cfg.encoder_decoder or mode == "decode":
+            return None, {}
+        enc_out, enc_aux = self.encode(params, batch["frontend"])
+        return enc_out, {f"enc_{k}": v for k, v in enc_aux.items()}
+
     def _inputs(self, params, batch, mode):
         """Embedded tokens, with the vision frontend prepended outside
         decode, and their positions."""
@@ -96,9 +119,11 @@ class Model:
               mode: str = "train", cache: Optional[dict] = None,
               max_len: Optional[int] = None):
         """Returns (logits, new_cache, aux). batch: {"tokens": (B,S) int},
-        and for a vision model {"frontend": (B,F,D)} outside decode; decode
-        takes tokens (B,1) and the cache, which it updates in place. aux:
-        the MoE losses summed over the layers (0 without MoE)."""
+        and for a vision or audio model {"frontend": (B,F,D)} outside
+        decode; decode takes tokens (B,1) and the cache, which it updates in
+        place. aux: the MoE losses summed over the layers (0 without MoE),
+        and an encoder–decoder's encoder's under ``enc_`` keys."""
+        enc_out, aux = self._encoded(params, batch, mode)
         x, positions = self._inputs(params, batch, mode)
         B, S = x.shape[:2]
         if mode == "decode":
@@ -106,11 +131,12 @@ class Model:
                 raise ValueError("decode needs a cache")
             positions = cache["pos"][:, None]  # (B,1)
 
-        x, new_stack_cache, aux = T.apply_stack(
+        x, new_stack_cache, saux = T.apply_stack(
             params["stack"], self.cfg, x, positions=positions,
             caches=cache["stack"] if cache is not None else None,
-            mode=mode, max_len=max_len,
+            mode=mode, enc_out=enc_out, max_len=max_len,
         )
+        aux.update(saux)
         new_cache = None
         if mode == "prefill":
             logits = self._head(params, x[:, -1:])  # last position only
@@ -129,18 +155,22 @@ class Model:
                    chunk: int = 1024):
         """Memory-lean train loss: the stack in train mode, then the head and
         cross-entropy over rematerialised sequence chunks, plus the MoE aux
-        losses. batch: tokens and labels (B,S) int, optional loss_mask (B,S),
-        and a vision model's frontend (B,F,D). Returns (loss, metrics)."""
+        losses (an encoder–decoder's encoder's too). batch: tokens and labels
+        (B,S) int, optional loss_mask (B,S), and a vision or audio model's
+        frontend (B,F,D). Returns (loss, metrics)."""
+        enc_out, aux = self._encoded(params, batch, "train")
         x, positions = self._inputs(params, batch, "train")
-        x, _, aux = T.apply_stack(params["stack"], self.cfg, x, positions=positions,
-                                  mode="train")
+        x, _, saux = T.apply_stack(params["stack"], self.cfg, x, positions=positions,
+                                   mode="train", enc_out=enc_out)
+        aux.update(saux)
         if self.cfg.frontend == "vision":
             x = x[:, self.cfg.frontend_seq:]  # loss over text positions only
         loss, metrics = chunked_lm_loss(self, params, x, batch["labels"],
                                         batch.get("loss_mask"), chunk=chunk)
-        for k in ("moe_aux", "moe_z"):
-            loss = loss + aux[k]
-            metrics[k] = aux[k]
+        for k in ("moe_aux", "moe_z", "enc_moe_aux", "enc_moe_z"):
+            if k in aux:
+                loss = loss + aux[k]
+                metrics[k] = aux[k]
         return loss, metrics
 
 

@@ -4,7 +4,9 @@ Layers are grouped into *periods* (the LCM of the block pattern and the
 MoE interleave). Both parameter layouts of the JAX package are accepted:
 ``{"scan": period}`` with every leaf stacked over the periods on a leading
 axis, and ``{"unroll": (layer, …)}``; caches follow the same layout. The
-stacked layout runs as a Python loop over the periods.
+stacked layout runs as a Python loop over the periods, each of which
+declares its own scan FLOPs (``models.accounting``), so no ``scan_scope``
+multiplies them.
 
 In train mode with ``cfg.remat != "none"`` each period runs under
 ``torch.utils.checkpoint`` (``layers.remat``), as JAX wraps it in
@@ -12,10 +14,14 @@ In train mode with ``cfg.remat != "none"`` each period runs under
 ``remat_save``, and no value of the model carries that name, so it saves
 nothing inside a period: ``"block"`` and ``"full"`` are the same here.
 
-Blocks are attention or mamba, each followed by a dense MLP or an MoE
-sublayer; the MoE aux losses are summed over the layers and periods. xLSTM
-blocks, cross-attention and encoder–decoder stacks are not ported yet and
-raise ``NotImplementedError``.
+Blocks are attention, mamba, mLSTM or sLSTM, each followed by a dense MLP
+or an MoE sublayer where the config has one; the MoE aux losses are summed
+over the layers and periods. An encoder–decoder's decoder layers add a
+cross-attention sublayer (``lnx``, ``cross``) over the encoder's output,
+and their cache a ``cross`` half of the encoder's length beside the
+self-attention ``kv``. JAX's ``apply_stack`` also takes ``decoder=``, which
+it does not use (a layer has a cross sublayer when its params do); the
+port leaves it out.
 """
 from __future__ import annotations
 
@@ -27,13 +33,10 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
+from repro_torch.models.accounting import add_scan_flops
 from repro_torch.models.schema import ParamSpec
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-
-
-def _unsupported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (attention and mamba "
-                               "blocks, dense or MoE)")
 
 
 # ----------------------------------------------------------------- layout
@@ -45,22 +48,30 @@ def period_layout(cfg) -> List[Tuple[str, bool]]:
     return [(cfg.block_kind(i), cfg.is_moe_layer(i)) for i in range(period)]
 
 
-def n_periods(cfg) -> int:
+def n_periods(cfg, num_layers: Optional[int] = None) -> int:
+    nl = num_layers if num_layers is not None else cfg.num_layers
     p = len(period_layout(cfg))
-    if cfg.num_layers % p:
-        raise ValueError(f"num_layers {cfg.num_layers} not divisible by period {p}")
-    return cfg.num_layers // p
+    if nl % p:
+        raise ValueError(f"num_layers {nl} not divisible by period {p}")
+    return nl // p
 
 
 # ------------------------------------------------------------ layer specs
-def layer_spec(cfg, kind: str, is_moe: bool) -> dict:
+def layer_spec(cfg, kind: str, is_moe: bool, decoder: bool = False) -> dict:
     spec: Dict[str, Any] = {"ln1": L.norm_spec(cfg)}
     if kind == "attn":
         spec["attn"] = L.attention_spec(cfg)
+        if decoder and cfg.encoder_decoder:
+            spec["lnx"] = L.norm_spec(cfg)
+            spec["cross"] = L.attention_spec(cfg, cross=True)
     elif kind == "mamba":
         spec["mamba"] = S.mamba_spec(cfg)
+    elif kind == "mlstm":
+        spec["mlstm"] = X.mlstm_spec(cfg)
+    elif kind == "slstm":
+        spec["slstm"] = X.slstm_spec(cfg)
     else:
-        raise _unsupported(f"block kind {kind!r}")
+        raise ValueError(kind)
     if is_moe:
         spec["ln2"] = L.norm_spec(cfg)
         spec["moe"] = M.moe_spec(cfg)
@@ -85,38 +96,50 @@ def _stack_spec(spec_tree, n: int):
     )
 
 
-def stack_spec(cfg) -> dict:
+def stack_spec(cfg, num_layers: Optional[int] = None, decoder: bool = False) -> dict:
     """Spec for a full stack. scan_layers → one period spec, leaves stacked
     over n_periods; else a tuple of per-layer specs."""
     layout = period_layout(cfg)
-    n = n_periods(cfg)
-    period = tuple(layer_spec(cfg, k, m) for k, m in layout)
+    n = n_periods(cfg, num_layers)
+    period = tuple(layer_spec(cfg, k, m, decoder) for k, m in layout)
     if cfg.scan_layers:
         return {"scan": _stack_spec(period, n)} if n > 1 else {"unroll": period}
     return {"unroll": period * n}
 
 
 # --------------------------------------------------------- cache plumbing
-def layer_cache_spec(cfg, kind: str, batch: int, max_len: int) -> dict:
+def layer_cache_spec(cfg, kind: str, batch: int, max_len: int, decoder: bool = False):
     """Decode-cache (shape, dtype) leaves for one layer."""
+    if kind == "attn":
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        c = {
+            "kv": {
+                "k": ((batch, max_len, kv, hd), cfg.compute_dtype),
+                "v": ((batch, max_len, kv, hd), cfg.compute_dtype),
+                "len": ((batch,), torch.int32),
+            }
+        }
+        if decoder and cfg.encoder_decoder:
+            f = cfg.frontend_seq
+            c["cross"] = {
+                "k": ((batch, f, kv, hd), cfg.compute_dtype),
+                "v": ((batch, f, kv, hd), cfg.compute_dtype),
+            }
+        return c
     if kind == "mamba":
         return S.mamba_cache_spec(cfg, batch)
-    if kind != "attn":
-        raise _unsupported(f"block kind {kind!r}")
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
-    return {
-        "kv": {
-            "k": ((batch, max_len, kv, hd), cfg.compute_dtype),
-            "v": ((batch, max_len, kv, hd), cfg.compute_dtype),
-            "len": ((batch,), torch.int32),
-        }
-    }
+    if kind == "mlstm":
+        return X.mlstm_cache_spec(cfg, batch)
+    if kind == "slstm":
+        return X.slstm_cache_spec(cfg, batch)
+    raise ValueError(kind)
 
 
-def stack_cache_spec(cfg, batch: int, max_len: int):
+def stack_cache_spec(cfg, batch: int, max_len: int, num_layers: Optional[int] = None,
+                     decoder: bool = False):
     layout = period_layout(cfg)
-    n = n_periods(cfg)
-    period = tuple(layer_cache_spec(cfg, k, batch, max_len) for k, _ in layout)
+    n = n_periods(cfg, num_layers)
+    period = tuple(layer_cache_spec(cfg, k, batch, max_len, decoder) for k, _ in layout)
     is_sd = _is_shape_dtype
     if cfg.scan_layers and n > 1:
         return {"scan": tree_map(lambda s: ((n,) + s[0], s[1]), period, is_leaf=is_sd)}
@@ -130,21 +153,35 @@ def _is_shape_dtype(x) -> bool:
 
 # ------------------------------------------------------------- layer body
 def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
-                cache: Optional[dict], mode: str, max_len: Optional[int] = None):
+                cache: Optional[dict], mode: str, enc_out: Optional[torch.Tensor] = None,
+                causal: bool = True, max_len: Optional[int] = None):
     """Pre-norm residual layer. Returns (x, new_cache, aux)."""
     aux: Dict[str, torch.Tensor] = {}
     h = L.apply_norm(p["ln1"], x)
     if kind == "attn":
-        out, kvc = L.apply_attention(
-            p["attn"], cfg, h, positions=positions,
+        out, kvc, sf = L.apply_attention(
+            p["attn"], cfg, h, positions=positions, causal=causal,
             cache=cache["kv"] if cache else None, mode=mode, max_len=max_len,
         )
+        if sf:
+            add_scan_flops(sf)
+        x = x + out
         new_cache = {"kv": kvc} if kvc is not None else None
-    elif kind == "mamba":
-        out, new_cache = S.apply_mamba(p["mamba"], cfg, h, cache=cache, mode=mode)
+        if "cross" in p:  # decoder cross-attention sublayer
+            cout, cc = L.apply_cross_attention(
+                p["cross"], cfg, L.apply_norm(p["lnx"], x), enc_out,
+                cache=cache["cross"] if cache else None, mode=mode,
+            )
+            x = x + cout
+            if new_cache is not None and cc is not None:
+                new_cache["cross"] = cc
     else:
-        raise _unsupported(f"block kind {kind!r}")
-    x = x + out
+        apply = {"mamba": S.apply_mamba, "mlstm": X.apply_mlstm,
+                 "slstm": X.apply_slstm}.get(kind)
+        if apply is None:
+            raise ValueError(kind)
+        out, new_cache = apply(p[kind], cfg, h, cache=cache, mode=mode)
+        x = x + out
     if "moe" in p:
         y, aux = M.apply_moe(p["moe"], cfg, L.apply_norm(p["ln2"], x))
         x = x + y
@@ -163,7 +200,8 @@ def _add_aux(aux: dict, a: dict) -> None:
         aux[k] = aux[k] + v
 
 
-def _apply_period(pp, cfg, layout, x, *, positions, caches, mode, max_len):
+def _apply_period(pp, cfg, layout, x, *, positions, caches, mode, enc_out, causal,
+                  max_len):
     """One period of layers. caches: tuple aligned with layout (or None).
     Returns (x, new_caches, aux)."""
     aux = _zero_aux(x.device)
@@ -171,7 +209,8 @@ def _apply_period(pp, cfg, layout, x, *, positions, caches, mode, max_len):
     for i, (kind, _) in enumerate(layout):
         c = caches[i] if caches is not None else None
         x, nc, a = apply_layer(pp[i], cfg, kind, x, positions=positions, cache=c,
-                               mode=mode, max_len=max_len)
+                               mode=mode, enc_out=enc_out, causal=causal,
+                               max_len=max_len)
         _add_aux(aux, a)
         new_caches.append(nc)
     return x, tuple(new_caches), aux
@@ -184,11 +223,14 @@ def _write_back(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 
 def apply_stack(params: dict, cfg, x: torch.Tensor, *, positions, caches=None,
-                mode: str = "train", max_len: Optional[int] = None):
+                mode: str = "train", enc_out: Optional[torch.Tensor] = None,
+                causal: bool = True, max_len: Optional[int] = None):
     """Run a stack. Returns (x, new_caches, aux); caches mirror the
     ``stack_cache_spec`` layout ({"scan": ...} or {"unroll": ...}), aux
-    sums the MoE losses over every layer. In the stacked layout a decode
-    step updates the stacked cache in place."""
+    sums the MoE losses over every layer. ``enc_out`` is what a decoder's
+    cross-attention reads outside decode; ``causal=False`` is the encoder's
+    self-attention. In the stacked layout a decode step updates the stacked
+    cache in place (a decoder's cross half passes through unwritten)."""
     layout = period_layout(cfg)
     want_cache = mode in ("prefill", "decode")
     use_remat = cfg.remat != "none" and mode == "train"
@@ -197,7 +239,8 @@ def apply_stack(params: dict, cfg, x: torch.Tensor, *, positions, caches=None,
     def run_period(pp, x, pc):
         def fn(pp, x):
             return _apply_period(pp, cfg, layout, x, positions=positions, caches=pc,
-                                 mode=mode, max_len=max_len)
+                                 mode=mode, enc_out=enc_out, causal=causal,
+                                 max_len=max_len)
         return L.remat(fn, pp, x) if use_remat else fn(pp, x)
 
     if "scan" in params:

@@ -1,6 +1,7 @@
-"""The model families of the port (the vision frontend, MoE and Mamba-2
-SSD) against the JAX package on the same weights: phi-3-vision-4.2b,
-granite-moe-3b-a800m, grok-1-314b and jamba-1.5-large-398b, each at
+"""The model families of the port (the vision frontend, MoE, Mamba-2
+SSD, xLSTM and the audio encoder–decoder) against the JAX package on the
+same weights: phi-3-vision-4.2b, granite-moe-3b-a800m, grok-1-314b,
+jamba-1.5-large-398b, xlstm-125m and seamless-m4t-large-v2, each at
 ``:smoke``, with the JAX parameters bridged through numpy, at f32 compute
 on both sides, so that the tolerance (1e-4, atol and rtol, as
 ``tests/test_torch_archs.py`` uses) covers only summation order.
@@ -9,13 +10,13 @@ Per arch: the config fields and the full-width ``n_params``; ``apply`` in
 train, prefill and decode (logits, cache and the MoE aux losses, decode
 both from the port's own prefill cache and from the JAX cache bridged by
 ``from_jax_cache``); ``train_loss`` and its metrics; one AdamW step's
-params and moments; greedy ``generate`` (phi-3-vision's with
-``batch_extra``). Then: the gelu MLP against ``jax.nn.gelu``; the flash
+params and moments; greedy ``generate`` (phi-3-vision's and seamless's
+with ``batch_extra``). Then: the gelu MLP against ``jax.nn.gelu``; the flash
 branch at the full-width head shapes these archs bring (head_dim 96 with
 GQA group 1, group 3 at 64, group 6 at 128 with softcap 30); and the KV
 store's cache key, which both packages take from the prompt tokens only,
-so a vision request with the same text and another image is served the
-first image's cache (a fault of the reference that the port keeps for
+so a vision or audio request with the same text and another frontend is
+served the first one's cache (a fault of the reference that the port keeps for
 parity). ``tests/test_torch_kernels.py`` holds the flash kernel at those
 head shapes against its plain version on the card.
 """
@@ -46,16 +47,19 @@ from repro_torch.train.step import make_train_step
 from repro_torch.tree import tree_leaves
 
 TOL = 1e-4
-ARCHS = ["phi-3-vision-4.2b", "granite-moe-3b-a800m", "grok-1-314b", "jamba-1.5-large-398b"]
+ARCHS = ["phi-3-vision-4.2b", "granite-moe-3b-a800m", "grok-1-314b", "jamba-1.5-large-398b",
+         "xlstm-125m", "seamless-m4t-large-v2"]
 # the JAX package's n_params() at full width (computed on the CPU)
 N_PARAMS = {"phi-3-vision-4.2b": 3_821_079_552, "granite-moe-3b-a800m": 3_374_295_552,
-            "grok-1-314b": 213_410_125_824, "jamba-1.5-large-398b": 397_644_798_720}
+            "grok-1-314b": 213_410_125_824, "jamba-1.5-large-398b": 397_644_798_720,
+            "xlstm-125m": 188_954_184, "seamless-m4t-large-v2": 1_632_256_000}
 FIELDS = ("name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
           "vocab_size", "head_dim", "qk_norm", "rope_theta", "rotary_pct", "mlp_kind",
           "norm_kind", "attn_logit_softcap", "tie_embeddings", "scan_layers", "remat",
           "max_seq_len", "block_pattern", "frontend", "frontend_seq", "encoder_decoder",
-          "moe_every", "moe_offset", "sub_quadratic")
+          "num_encoder_layers", "moe_every", "moe_offset", "sub_quadratic")
 # prompt lengths: a multiple of jamba:smoke's SSD chunk (32), as prefill needs
+# (xlstm's mLSTM chunk is min(64, S))
 PROMPT, DECODE = 32, 3
 
 _PAIRS = {}
@@ -78,9 +82,10 @@ def _tokens(B, S, seed, vocab=256):
 
 
 def _batch(cfg, B, S, seed):
-    """numpy batch: tokens, and a vision model's frontend embeddings."""
+    """numpy batch: tokens, and a vision or audio model's frontend
+    embeddings."""
     b = {"tokens": _tokens(B, S, seed)}
-    if cfg.frontend == "vision":
+    if cfg.frontend != "none":
         b["frontend"] = np.random.default_rng(seed + 100).standard_normal(
             (B, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
     return b
@@ -117,8 +122,20 @@ def _close_trees(got, want):
         _close(g, w)
 
 
-def _close_aux(got, want):
-    assert set(got) == set(want) == {"moe_aux", "moe_z"}
+def _aux_keys(cfg, decode=False):
+    """aux's keys: the MoE losses, and an encoder's outside decode."""
+    keys = {"moe_aux", "moe_z"}
+    return keys | {f"enc_{k}" for k in keys} if cfg.encoder_decoder and not decode else keys
+
+
+def _prepended(cfg):
+    """Frontend positions that sit before the text in the decoder's
+    sequence: a vision model's; an audio model's go to the encoder."""
+    return cfg.frontend_seq if cfg.frontend == "vision" else 0
+
+
+def _close_aux(got, want, cfg, decode=False):
+    assert set(got) == set(want) == _aux_keys(cfg, decode)
     for k in want:
         _close(got[k], want[k])
 
@@ -129,7 +146,7 @@ def test_config_fields_and_full_width_n_params_match_jax(arch):
         jc, tc = jax_config(name), get_config(name)
         for f in FIELDS:
             assert getattr(jc, f) == getattr(tc, f), (name, f)
-        for sub in ("moe", "mamba"):
+        for sub in ("moe", "mamba", "xlstm"):
             a, b = getattr(jc, sub), getattr(tc, sub)
             assert (a is None) == (b is None), (name, sub)
             if a is not None:
@@ -146,9 +163,9 @@ def test_train_logits_and_aux_match_jax(arch):
     b = _batch(tm.cfg, 2, PROMPT, seed=1)
     jl, _, jaux = jax.jit(lambda p, b: jm.apply(p, b, mode="train"))(jp, _jb(b))
     tl, tc, taux = tm.apply(tp, _tb(b), mode="train")
-    assert tc is None and tl.shape == (2, tm.cfg.frontend_seq + PROMPT, 256)
+    assert tc is None and tl.shape == (2, _prepended(tm.cfg) + PROMPT, 256)
     _close(tl, jl)
-    _close_aux(taux, jaux)
+    _close_aux(taux, jaux, tm.cfg)
     if tm.cfg.moe is not None:
         assert float(taux["moe_aux"]) > 0 and float(taux["moe_z"]) > 0
 
@@ -163,7 +180,7 @@ def test_prefill_then_decode_match_jax(arch):
     cfg = tm.cfg
     b = _batch(cfg, 2, PROMPT + DECODE, seed=2)
     pre = dict(b, tokens=b["tokens"][:, :PROMPT])
-    S0 = cfg.frontend_seq + PROMPT
+    S0 = _prepended(cfg) + PROMPT
     max_len = S0 + 8
     jfn = jax.jit(lambda p, b, c, mode: jm.apply(p, b, mode=mode, cache=c, max_len=max_len),
                   static_argnums=3)
@@ -171,7 +188,7 @@ def test_prefill_then_decode_match_jax(arch):
     tl, tc, taux = tm.apply(tp, _tb(pre), mode="prefill", max_len=max_len)
     _close(tl, jl)
     _close_trees(tc, jc)
-    _close_aux(taux, jaux)
+    _close_aux(taux, jaux, tm.cfg)
     bridged = from_jax_cache(jax.device_get(jc), cfg, 2, max_len, device="cpu")
     for t in range(PROMPT, PROMPT + DECODE):
         nxt = {"tokens": b["tokens"][:, t:t + 1]}
@@ -181,7 +198,7 @@ def test_prefill_then_decode_match_jax(arch):
         _close(tl, jl)
         _close(bl, jl)
         _close_trees(tc, jc)
-        _close_aux(taux, jaux)
+        _close_aux(taux, jaux, tm.cfg, decode=True)
     assert tc["pos"].tolist() == [S0 + DECODE] * 2
 
 
@@ -193,7 +210,7 @@ def test_train_loss_and_metrics_match_jax(arch):
     jl, jmet = jax.jit(jm.train_loss)(jp, _jb(b))
     tl, tmet = tm.train_loss(tp, _tb(b))
     _close(tl, jl)
-    assert set(tmet) == set(jmet) == {"ce", "zloss", "moe_aux", "moe_z"}
+    assert set(tmet) == set(jmet) == {"ce", "zloss"} | _aux_keys(tm.cfg)
     for k in jmet:
         _close(tmet[k], jmet[k])
 
@@ -216,7 +233,7 @@ def test_one_adamw_step_matches_jax(arch):
     js, jmet = jax.jit(jstep.make_train_step(jm, jo))(js, _jb(b))
     ts, tmet = make_train_step(tm, to)(ts, _tb(b))
     assert int(ts["step"]) == int(js["step"]) == 1
-    for k in ("loss", "grad_norm", "ce", "zloss", "moe_aux", "moe_z"):
+    for k in ("loss", "grad_norm", "ce", "zloss", *_aux_keys(tm.cfg)):
         _close(tmet[k], jmet[k])
     _close_trees(ts["params"], js["params"])
     for k in ("m", "v"):
@@ -228,7 +245,7 @@ def test_generate_matches_jax(arch):
     jm, jp, tm, tp = _pair(arch)
     b = _batch(tm.cfg, 2, PROMPT, seed=6)
     extra = {k: v for k, v in b.items() if k != "tokens"}
-    max_len = tm.cfg.frontend_seq + PROMPT + 8
+    max_len = _prepended(tm.cfg) + PROMPT + 8
     want = np.asarray(jax_generate(jm, jp, jnp.asarray(b["tokens"]), steps=6,
                                    max_len=max_len, batch_extra=_jb(extra) or None))
     got = generate(tm, tp, torch.from_numpy(b["tokens"]), steps=6, max_len=max_len,
@@ -237,30 +254,37 @@ def test_generate_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch,layers", [("jamba-1.5-large-398b", 16),
-                                         ("granite-moe-3b-a800m", 2)])
+                                         ("granite-moe-3b-a800m", 2),
+                                         ("xlstm-125m", 8),
+                                         ("seamless-m4t-large-v2", 3)])
 def test_stacked_layout_matches_jax(arch, layers):
     """``scan_layers``, as the full-width configs set it: every leaf stacked
     over the periods in one ``{"scan": period}`` tuple (jamba's period of 8
-    mixes mamba and attention, MoE and dense layers). The bridge checks each
-    leaf's shape and dtype; train logits and aux, the prefill's stacked
-    cache and a decode step in it equal JAX's."""
-    jcfg = jax_config(f"{arch}:smoke").with_(compute_dtype=jnp.float32, num_layers=layers,
-                                             scan_layers=True)
-    tcfg = get_config(f"{arch}:smoke").with_(compute_dtype=torch.float32, num_layers=layers,
-                                             scan_layers=True)
+    mixes mamba and attention, MoE and dense layers; xlstm's of 4 three
+    mLSTM and one sLSTM block, whose caches hold tuples of states;
+    seamless's decoder and encoder stacks of 3 layers each, the decoder's
+    with its cross half). The bridge checks each leaf's shape and dtype;
+    train logits and aux, the prefill's stacked cache and a decode step in
+    it equal JAX's."""
+    depth = dict(num_layers=layers, scan_layers=True)
+    if arch == "seamless-m4t-large-v2":
+        depth["num_encoder_layers"] = layers
+    jcfg = jax_config(f"{arch}:smoke").with_(compute_dtype=jnp.float32, **depth)
+    tcfg = get_config(f"{arch}:smoke").with_(compute_dtype=torch.float32, **depth)
     jm, tm = jax_model(jcfg), build_model(tcfg)
     jp = jax.jit(jm.init)(jax.random.key(2))
     tp = from_jax_params(jax.device_get(jp), tcfg, device="cpu")
-    assert set(tp["stack"]) == {"scan"}
+    assert set(tp["stack"]) == {"scan"} and set(tp.get("enc_stack", {"scan": 0})) == {"scan"}
     assert {tuple(sorted(layer)) for layer in tp["stack"]["scan"]} <= {
         ("attn", "ln1", "ln2", "mlp"), ("attn", "ln1", "ln2", "moe"),
-        ("ln1", "ln2", "mamba", "mlp"), ("ln1", "ln2", "mamba", "moe")}
+        ("ln1", "ln2", "mamba", "mlp"), ("ln1", "ln2", "mamba", "moe"),
+        ("ln1", "mlstm"), ("ln1", "slstm"), ("attn", "cross", "ln1", "ln2", "lnx", "mlp")}
     b = _batch(tcfg, 2, PROMPT + 1, seed=11)
     pre = dict(b, tokens=b["tokens"][:, :PROMPT])
     jl, _, jaux = jax.jit(lambda p, b: jm.apply(p, b, mode="train"))(jp, _jb(pre))
     tl, _, taux = tm.apply(tp, _tb(pre), mode="train")
     _close(tl, jl)
-    _close_aux(taux, jaux)
+    _close_aux(taux, jaux, tm.cfg)
     jfn = jax.jit(lambda p, b, c, mode: jm.apply(p, b, mode=mode, cache=c, max_len=40),
                   static_argnums=3)
     _, jc, _ = jfn(jp, _jb(pre), None, "prefill")
@@ -352,16 +376,21 @@ def test_prefill_past_flash_threshold_matches_jax(arch):
     _close(tl, jl)
 
 
-def test_kv_store_keys_a_vlm_cache_by_its_text_alone():
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-large-v2"])
+def test_kv_store_keys_a_vlm_cache_by_its_text_alone(arch):
     """Both packages key a stored cache by the prompt tokens only
     (``kvstore.py``'s ``put``/``contains``), so a second request with the
-    same text and another image finds the first one's cache and is served
-    its tokens. Recorded, not repaired: the port keeps the reference's
-    behaviour."""
-    jm, jp, tm, tp = _pair("phi-3-vision-4.2b")
+    same text and another image (phi-3-vision) or other audio frames
+    (seamless, whose encoder output the cache's cross half holds) finds the
+    first one's cache and is served its tokens. Recorded, not repaired: the
+    port keeps the reference's behaviour."""
+    jm, jp, tm, tp = _pair(arch)
     b = _batch(tm.cfg, 1, 16, seed=10)
-    other = dict(b, frontend=b["frontend"][:, ::-1].copy())  # the same text, another image
-    max_len = tm.cfg.frontend_seq + 16 + 8
+    if tm.cfg.frontend == "vision":  # the same text, another image
+        other = dict(b, frontend=b["frontend"][:, ::-1].copy())
+    else:  # other frames: reversed ones would encode to the same keys, in another order
+        other = dict(b, frontend=_batch(tm.cfg, 1, 16, seed=11)["frontend"])
+    max_len = _prepended(tm.cfg) + 16 + 8
 
     def jgen(batch, store):
         return np.asarray(jax_generate(jm, jp, jnp.asarray(batch["tokens"]), steps=4,

@@ -14,7 +14,7 @@ from repro.models.model import build_model as jax_model
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as L
 from repro_torch.models.bridge import from_jax_params
-from repro_torch.models.config import get_config
+from repro_torch.models.config import XLSTMConfig, get_config
 from repro_torch.models.model import build_model
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -171,7 +171,14 @@ def test_init_cache_layout_and_unported_families():
     c = build_model(cfg).init_cache(2, 8, device="cpu")
     assert c["stack"]["scan"][0]["kv"]["k"].shape == (4, 2, 8, 2, 16)
     assert c["pos"].dtype == torch.int32
-    with pytest.raises(NotImplementedError):
-        build_model(cfg.with_(block_pattern=("mlstm",))).spec()
-    with pytest.raises(NotImplementedError):
-        build_model(cfg.with_(encoder_decoder=True))
+    # the families this test found refused are ported now: an xLSTM stack
+    # and an encoder–decoder build, and an unknown block kind raises
+    xl = build_model(cfg.with_(block_pattern=("mlstm",), xlstm=XLSTMConfig())).spec()
+    assert set(xl["stack"]["scan"][0]) == {"ln1", "mlstm", "ln2", "mlp"}
+    ed = build_model(cfg.with_(encoder_decoder=True, num_encoder_layers=2,
+                               frontend="audio", frontend_seq=4))
+    assert {"enc_stack", "enc_ln"} <= set(ed.spec())
+    assert ed.init_cache(2, 8, device="cpu")["stack"]["scan"][0]["cross"]["k"].shape == (
+        4, 2, 4, 2, 16)
+    with pytest.raises(ValueError):
+        build_model(cfg.with_(block_pattern=("rnn",))).spec()
