@@ -121,8 +121,28 @@ exits non-zero without the final line:
                params, remat) at S 4,096, batch 2: the first three AdamW
                steps of ``for_config``'s schedule on one batch (finite,
                falling loss), then one at microbatches 2.
+ 16. distribution — qwen3-1.7b at full width, each of its cells planned by
+               ``launch.specs.plan_cell`` on a real 1x1 DeviceMesh (NCCL,
+               a world of one) and run under the plan's sharding rules
+               with its arguments DTensors at the plan's placements,
+               against the same call on plain tensors: train_4k (batch
+               cut 256 -> 4, 4 microbatches; every param and moment, loss
+               and grad_norm bit-equal), prefill_32k (32 -> 2; logits,
+               greedy tokens and the 7.5 GB cache bit-equal; flash once a
+               layer in each run) and decode_32k (128 -> 8; one step
+               against a 30.1 GB cache, tokens, logits and the written
+               slots bit-equal); each variant's first call, then the
+               median of 3 more and their peak memory (on a 1x1 mesh every
+               placement is Replicate: the sharded arithmetic is held
+               against the plain path on a 2x2 mesh of CPU processes by
+               ``tests/test_torch_launch.py``); then the
+               dry run of those cells at full batch on the fake 16x16 and
+               2x16x16 meshes in a child process (6 OK, 2 SKIP, every OK
+               row with collective bytes, a peak and the three roofline
+               terms) and a plan of all 32 cells x 2 meshes.
 
-The train phases run under ``torch.use_deterministic_algorithms(True)``,
+The train phases, and distribution's train cell, run under
+``torch.use_deterministic_algorithms(True)``,
 with ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts.
 
 Then a ``phase_seconds`` line, the ``{"kernels": [...]}`` line, the
@@ -2312,6 +2332,298 @@ def phase_train():
     return flash
 
 
+# ------------------------------------------------------------ phase 16
+# distribution path: qwen3-1.7b at full width under each cell's sharding
+# rules on a real 1x1 mesh, each cell's global batch cut to fit one card
+DIST_ARCH = "qwen3-1.7b"
+DIST_CUTS = {
+    "train_4k": (4, "global batch 256 -> 4 (microbatches 4, TRAIN_MICROBATCHES)"),
+    "prefill_32k": (2, "global batch 32 -> 2"),
+    "decode_32k": (8, "global batch 128 -> 8"),
+}
+DIST_SEED = 19
+
+
+def _dist_tokens(abstract, vocab, seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.integers(0, vocab, tuple(v.shape)).astype(np.int32)).cuda()
+            for k, v in abstract.items()}
+
+
+def _whole(t):
+    """A DTensor on the 1x1 mesh as a plain tensor (its one shard), anything
+    else as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _timed(fn, *a):
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+
+
+DIST_REPS = 3  # timed calls of each variant after its first
+
+
+def _dist_run(plan, args, compare, fn=None, before=None):
+    """``fn`` (the plan's step by default) on ``args()`` without rules, then
+    on fresh ``args()`` placed at the plan's placements under its rules;
+    ``compare(want, got)`` checks these first calls' outputs. Then each
+    variant runs ``DIST_REPS`` more times on its own arguments (a train
+    step goes on updating them), timed: the record holds each variant's
+    first (cold) call and the median of the timed ones, the timed calls'
+    peak memory and the first calls' flash launches. ``before(a)``, if
+    given, runs untimed before every call on its arguments."""
+    import statistics
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.sharding import use_rules
+
+    fn = fn or plan.fn
+
+    def ruled(*a):
+        with use_rules(plan.rules):
+            out = fn(*a)
+            return plan.constrain(out) if fn is plan.fn else out
+
+    def call(f, a):
+        if before is not None:
+            before(a)
+        return _timed(f, *a)
+
+    f0 = fa.LAUNCHES
+    plain_args = args()
+    want, plain_first, _ = call(fn, plain_args)
+    f1 = fa.LAUNCHES
+    placed = plan.place(args())
+    got, rules_first, _ = call(ruled, placed)
+    rec = {"flash_launches": [f1 - f0, fa.LAUNCHES - f1]}
+    rec.update(compare(want, got))
+    del want, got
+    _free()
+    for name, f, a, first in (("plain", fn, plain_args, plain_first),
+                              ("rules", ruled, placed, rules_first)):
+        runs = [call(f, a)[1:] for _ in range(DIST_REPS)]
+        rec.update({f"{name}_first_ms": first,
+                    f"{name}_ms": statistics.median(ms for ms, _ in runs),
+                    f"{name}_ms_runs": [ms for ms, _ in runs],
+                    f"{name}_peak_bytes": max(peak for _, peak in runs)})
+    return rec
+
+
+def _bit_equal(want, got, what: str) -> int:
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    w, g = tree_leaves(want), tree_leaves(got)
+    check(len(w) == len(g) > 0, f"distribution {what}: {len(w)} leaves vs {len(g)}")
+    differ = [i for i, (a, b) in enumerate(zip(w, g)) if not torch.equal(_whole(b), a)]
+    check(not differ, f"distribution {what}: leaves {differ[:8]} differ with rules")
+    return len(w)
+
+
+def _dist_train(mesh):
+    """One train step of the cut cell without rules and with them, from the
+    same seeded params, under ``deterministic()``: loss, grad_norm, the
+    step, every updated param and AdamW moment bit-equal."""
+    import torch
+
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.train import optim
+
+    batch_n, cut = DIST_CUTS["train_4k"]
+    plan = plan_cell(DIST_ARCH, "train_4k", mesh, batch=batch_n)
+    opt = optim.for_config(plan.cfg)
+    batch = _dist_tokens(plan.abstract_args[1], plan.cfg.vocab_size, DIST_SEED)
+
+    def args():
+        params = plan.model.init(torch.Generator("cuda").manual_seed(DIST_SEED))
+        return ({"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}, batch)
+
+    def compare(want, got):
+        (w_state, w_m), (g_state, g_m) = want, got
+        return {"leaves_bit_equal": _bit_equal(w_state, g_state, "train state")
+                + _bit_equal(w_m, g_m, "train metrics"),
+                "loss": float(w_m["loss"]), "grad_norm": float(w_m["grad_norm"]),
+                "rules_loss": float(_whole(g_m["loss"])),
+                "rules_grad_norm": float(_whole(g_m["grad_norm"]))}
+
+    with deterministic():
+        rec = _dist_run(plan, args, compare)
+    rec.update(cell="train_4k", cut=cut, batch=batch_n, seq=plan.cell.seq_len,
+               microbatches=plan.microbatches)
+    check(rec["flash_launches"] == [0, 0], f"the train step launched flash {rec}")
+    check(math.isfinite(rec["loss"]), f"non-finite loss {rec['loss']}")
+    _free()
+    return rec
+
+
+def _dist_serve(mesh):
+    """The cut prefill cell (flash once a layer, in both runs) and the cut
+    decode cell (one step against a full 32,768-entry cache of random
+    keys and values, every row writing its last slot), each without rules
+    and with them: logits, greedy tokens and caches bit-equal."""
+    import torch
+
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.serve.step import make_decode_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    recs = []
+    pb, pcut = DIST_CUTS["prefill_32k"]
+    plan = plan_cell(DIST_ARCH, "prefill_32k", mesh, batch=pb)
+    params = plan.model.init(torch.Generator("cuda").manual_seed(DIST_SEED))
+    batch = _dist_tokens(plan.abstract_args[1], plan.cfg.vocab_size, DIST_SEED + 1)
+    def compare_prefill(want, got):
+        (w_logits, w_cache), (g_logits, g_cache) = want, got
+        leaves = _bit_equal(w_logits, g_logits, "prefill logits") + _bit_equal(
+            w_cache, g_cache, "prefill cache")
+        w_tok = torch.argmax(w_logits[:, -1], -1)
+        check(torch.equal(w_tok, torch.argmax(_whole(g_logits)[:, -1], -1)),
+              "distribution prefill: greedy tokens differ with rules")
+        return {"leaves_bit_equal": leaves, "tokens": w_tok.tolist(),
+                "cache_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(w_cache))}
+
+    with torch.inference_mode():
+        rec = _dist_run(plan, lambda: (params, batch), compare_prefill)
+    layers = plan.cfg.num_layers
+    check(rec["flash_launches"] == [layers, layers],
+          f"prefill flash launches {rec['flash_launches']}, want {layers} in each run")
+    rec.update(cell="prefill_32k", cut=pcut, batch=pb, seq=plan.cell.seq_len)
+    recs.append(rec)
+    _free()
+
+    db, dcut = DIST_CUTS["decode_32k"]
+    plan = plan_cell(DIST_ARCH, "decode_32k", mesh, batch=db)
+    L = plan.cell.seq_len
+    gen = torch.Generator("cuda").manual_seed(DIST_SEED + 2)
+
+    def fill(t):
+        if t.dtype == torch.int32:
+            return torch.full(tuple(t.shape), L - 1, dtype=torch.int32, device="cuda")
+        return torch.randn(tuple(t.shape), generator=gen, dtype=t.dtype, device="cuda")
+
+    cache = tree_map(fill, plan.abstract_args[1])
+    tokens = _dist_tokens({"t": plan.abstract_args[2]}, plan.cfg.vocab_size, DIST_SEED + 3)["t"]
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    step = make_decode_step(plan.model)
+    written = []
+
+    def step_keeping(*a):
+        # both runs write each row's last slot of the same cache in place
+        # (the placed cache shares its storage): what each wrote is kept
+        out = step(*a)
+        written.append([t[..., L - 1, :, :].clone() for t in tree_leaves(cache) if t.dim() >= 4])
+        return out
+
+    def compare_decode(want, got):
+        (w_nxt, w_logits, _), (g_nxt, g_logits, _) = want, got
+        leaves = _bit_equal([w_nxt, w_logits], [g_nxt, g_logits], "decode tokens and logits")
+        leaves += _bit_equal(written[0], written[1], "decode cache writes")
+        written.clear()  # the timed calls write the same slots again
+        return {"leaves_bit_equal": leaves, "tokens": w_nxt[:, 0].tolist()}
+
+    def rewind(a):
+        # a step advances the stacked cache's lengths in place: every call
+        # starts from the last slot again
+        for t in tree_leaves(a[1]):
+            if t.dtype == torch.int32:
+                t.fill_(L - 1)
+
+    with torch.inference_mode():
+        rec = _dist_run(plan, lambda: (params, cache, tokens), compare_decode, fn=step_keeping,
+                        before=rewind)
+    rec.update(cell="decode_32k", cut=dcut, batch=db, cache_len=L, cache_bytes=cache_bytes)
+    check(rec["flash_launches"] == [0, 0], f"decode launched flash {rec['flash_launches']}")
+    recs.append(rec)
+    del cache, params, written
+    _free()
+    return recs
+
+
+def _dryrun(*args):
+    """``python -m repro_torch.launch.dryrun`` in a child process (its fake
+    process group would be this process's default group), started now."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _rows(proc, timeout: float, what: str):
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0, f"dry run {what} exited {proc.returncode}: {err[-2000:]}")
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def phase_distribution():
+    """The sharding rules on the card: qwen3-1.7b at full width, each cut
+    cell's plan run on a real 1x1 DeviceMesh (NCCL, a world of one) with
+    its arguments DTensors at the plan's placements, against the same
+    calls on plain tensors; then the dry run of the cells at their full
+    batch on the fake 16x16 and 2x16x16 meshes (in a child process)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    dry = _dryrun("--arch", DIST_ARCH, "--both")
+    plan_only = None
+    try:
+        fa.LAUNCHES = 0
+        mesh = make_debug_mesh()
+        cells = [_dist_train(mesh)] + _dist_serve(mesh)
+        launches = fa.LAUNCHES
+        for rec in cells:
+            emit("distribution_cell", model=DIST_ARCH, mesh="1x1", **rec)
+        plan_only = _dryrun("--plan-only", "--both")
+        traced = _rows(dry, 600, f"--arch {DIST_ARCH} --both")
+        planned = _rows(plan_only, 300, "--plan-only --both")
+    finally:
+        for proc in (dry, plan_only):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    status = [(r["cell"], r["mesh"], r["status"]) for r in traced]
+    check(sum(s == "OK" for *_, s in status) == 6 and sum(s == "SKIP" for *_, s in status) == 2
+          and len(status) == 8, f"dry run of {DIST_ARCH}: {status}")
+    for r in traced:
+        if r["status"] == "OK":
+            check(r["coll_bytes_per_dev"] > 0 and r["peak_bytes"] > 0
+                  and r["t_compute_ms"] > 0 and r["t_memory_ms"] > 0
+                  and r["t_collective_ms"] > 0, f"dry run row {r}")
+            emit("distribution_dryrun", **{k: v for k, v in r.items() if k != "coll_counts"})
+    ok_plans = [r for r in planned if r["status"] == "OK"]
+    check(len(ok_plans) == 64 and len(planned) == 80, f"plan-only pass: {len(ok_plans)} of "
+          f"{len(planned)} planned")
+    for r in ok_plans:
+        emit("distribution_plan", arch=r["arch"], cell=r["cell"], mesh=r["mesh"],
+             arg_bytes=r["arg_bytes"], t_compute_ms=r["t_compute_ms"],
+             t_memory_ms=r["t_memory_ms"], bottleneck=r["bottleneck"])
+    emit("distribution", model=DIST_ARCH, mesh="1x1 (NCCL, world of one)",
+         cuts={c: cut for c, (_, cut) in DIST_CUTS.items()},
+         ms={r["cell"]: {"plain": r["plain_ms"], "rules": r["rules_ms"],
+                         "plain_first": r["plain_first_ms"], "rules_first": r["rules_first_ms"]}
+             for r in cells},
+         timed=f"median of {DIST_REPS} calls after the first",
+         peak_bytes={r["cell"]: {"plain": r["plain_peak_bytes"], "rules": r["rules_peak_bytes"]}
+                     for r in cells},
+         flash_launches=launches, dryrun_cells=status, planned_cells=len(ok_plans))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2345,6 +2657,7 @@ def main() -> int:
     small_flash = timed_phase("train_small", phase_train_small)
     e2e_launches = timed_phase("train_e2e", phase_train_e2e)
     train_flash = timed_phase("train", phase_train)
+    dist_flash = timed_phase("distribution", phase_distribution)
     emit("phase_seconds", **seconds)
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -2358,7 +2671,7 @@ def main() -> int:
                               "recurrent_encdec": recurrent_launches["flash_attention"],
                               "train_small": small_flash,
                               "train_e2e": e2e_launches["flash_attention"],
-                              "train": train_flash},
+                              "train": train_flash, "distribution": dist_flash},
          "rel_err": fa_rec["rel_err"], "row_rel_err": fa_rec["row_rel_err"],
          "ms": fa_rec["ms"], "plain_ms": fa_rec["plain_ms"], "bound_ms": fa_rec["bound_ms"],
          "bound_by": fa_rec["bound_by"], "library_ms": fa_rec["library_ms"],

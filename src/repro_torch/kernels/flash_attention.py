@@ -30,6 +30,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 
@@ -91,21 +92,40 @@ def _strides(name: str, t: torch.Tensor):
 def flash_attention(q, k, v, *, causal=True, softcap=0.0):
     """GQA flash attention in the model layout: q (B,Sq,KV,G,D), k/v
     (B,Sk,KV,D) → (B,Sq,KV,G,D) in q's dtype. Causal masking assumes q and
-    k both start at position 0; Sq and Sk may be any lengths."""
+    k both start at position 0; Sq and Sk may be any lengths. DTensors
+    take the op's sharding strategy (``register_sharding_strategy``, which
+    ``sharding.use_rules`` calls on a DeviceMesh)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise ValueError("flash_attention is a forward-only kernel: q, k or v "
                          "requires grad; train through "
                          "models.layers._flash_attention_qchunked")
+    return flash_attention_op(q, k, v, bool(causal), float(softcap))
+
+
+def _check(q, k, v):
+    """Shapes and layouts the kernel takes (on every device, fake included);
+    returns each tensor's walk strides."""
     B, Sq, KV, G, D = q.shape
     if k.shape[0] != B or k.shape[2:] != (KV, D) or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not fit (B,S,KV,G,D)/(B,S,KV,D)")
-    qs, ks, vs = _strides("q", q), _strides("k", k), _strides("v", v)
+    return _strides("q", q), _strides("k", k), _strides("v", v)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       softcap: float) -> torch.Tensor:
+    """The registered op: the plain version on CPU tensors, the kernel on
+    CUDA tensors (or a ValueError); ``register_fake`` gives its output's
+    shape to ``FakeTensorMode`` and the meta device."""
+    qs, ks, vs = _check(q, k, v)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       softcap=softcap).contiguous()
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    B, Sq, KV, G, D = q.shape
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
                          "takes float32 or bfloat16, all three alike")
@@ -128,3 +148,37 @@ def flash_attention(q, k, v, *, causal=True, softcap=0.0):
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, softcap):
+    _check(q, k, v)
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, softcap, *args, **kwargs) -> int:
+    """QKᵀ and PV of every head, the causal half where masked (the
+    reference's accounting), for ``FlopCounterMode`` and the dry run."""
+    B, Sq, KV, G, D = q_shape
+    area = Sq * k_shape[1] * (0.5 if causal else 1.0)
+    return int(4 * B * KV * G * D * area)
+
+
+def register_sharding_strategy() -> None:
+    """Give DTensor the op's sharding strategy (again: it replaces the
+    entry; the module imports without ``torch.distributed``). Batch and
+    kv-head dims may be sharded (each output row reads its own batch row
+    and kv head); the q-group dim too, with k/v replicated (the q_per_kv
+    rule of an arch whose KV heads do not divide the model axis);
+    sequence and head_dim stay whole, as the reference's ``lac`` calls
+    around the attention allow."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _strategy(q, k, v, causal, softcap):
+        r = Replicate()
+        return [([r], [r, r, r, None, None])] + [
+            ([Shard(d)], [Shard(d), Shard(d), Shard(d), None, None]) for d in (0, 2)
+        ] + [([Shard(3)], [Shard(3), r, r, None, None])]

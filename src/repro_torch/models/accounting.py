@@ -12,14 +12,17 @@ it declares by ``scan_scope(n)``. The port runs those periods as a Python
 loop, so each period declares its own FLOPs and the stack enters no
 ``scan_scope``: wrapping the loop in one would count them n² times.
 ``count_scan_flops`` totals what JAX's ``measure_scan_flops`` totals for
-the same call. ``measure_scan_flops`` itself evaluates abstractly
-(``jax.eval_shape``); its counterpart on the meta device belongs with the
-distribution work and is not here.
+the same call. ``measure_scan_flops`` is the abstract twin, the
+counterpart of JAX's ``jax.eval_shape``: it runs the call under a
+``FakeTensorMode``, so that it allocates nothing, on ``meta`` tensors or
+fake ones (a plan's abstract arguments).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+
+import torch
 
 _ACC: contextvars.ContextVar = contextvars.ContextVar("scan_flops", default=None)
 _MULT: contextvars.ContextVar = contextvars.ContextVar("scan_mult", default=1.0)
@@ -53,3 +56,18 @@ def count_scan_flops(fn, *args, **kw) -> float:
     finally:
         _ACC.reset(tok)
     return acc[0]
+
+
+def measure_scan_flops(fn, *abstract_args, **kw) -> float:
+    """Run ``fn`` on abstract arguments (``meta`` tensors, or real ones
+    that are only read for their shapes) under a ``FakeTensorMode`` and
+    return the scan-body FLOPs it declares; nothing is allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.tree import tree_map
+
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        args = tree_map(lambda t: mode.from_tensor(t) if isinstance(t, torch.Tensor)
+                        else t, abstract_args)
+        return count_scan_flops(fn, *args, **kw)

@@ -101,6 +101,24 @@ class ModelConfig:
         return replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShapeCell:
+    """One assigned input-shape cell."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPE_CELLS = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
 # ---------------------------------------------------------------- registry
 _REGISTRY: dict = {}
 

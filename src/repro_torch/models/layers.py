@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.schema import ParamSpec
+from repro_torch.sharding import lac, lac_split
 
 FLASH_THRESHOLD = 2048  # einsum attention up to here; chunked twin or kernel above
 FLASH_BLOCK_KV = 512
@@ -128,6 +129,16 @@ def attention_spec(cfg, cross: bool = False) -> dict:
     return spec
 
 
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,S,D) · w (D, KV, …) → (B,S,KV, …), as one flat product
+    (B,S,KV·…) placed with KV as its logical axis before it is unflattened:
+    over DTensors a product may otherwise shard the flat dim in a way that
+    does not split back into (KV, …)."""
+    out = x @ w.reshape(w.shape[0], -1)
+    out = lac_split(out, w.shape[1], "batch", "seq", "kv_heads")
+    return out.reshape(tuple(x.shape[:2]) + tuple(w.shape[1:]))
+
+
 def _softcap(logits, cap):
     return torch.tanh(logits / cap) * cap if cap else logits
 
@@ -214,6 +225,46 @@ def _flash_attention_qchunked(qg, k, v, *, causal, softcap, block_q=FLASH_BLOCK_
         for q0 in range(0, Sq, block_q)], dim=1)
 
 
+def _per_shard(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)``, an attention without a cache. On DTensors
+    placed by the q/k/v constraints (sharded over batch, kv heads or q
+    groups, never over a sequence or head_dim) attention is independent per
+    shard, so it runs on each device's shards (``local_map``) with its
+    output at q's placements, forward and backward without a collective;
+    DTensor's own propagation would merge sharded dims inside its einsums
+    and gather them again."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    # K/V replicated where q's groups are split: each shard's K/V grad sums
+    # its own groups' share, a partial sum over that mesh dim
+    kv_grad = [tuple(Partial() if isinstance(qp, Shard) and p == Replicate() else p
+                     for qp, p in zip(q.placements, t.placements)) for t in (k, v)]
+    return local_map(lambda a, b, c: fn(a, b, c, **kw), out_placements=list(q.placements),
+                     in_placements=(q.placements, k.placements, v.placements),
+                     in_grad_placements=(q.placements, *kv_grad),
+                     device_mesh=q.device_mesh)(q, k, v)
+
+
+def _write_slot(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
+    """buf[b, idx[b]] = val[b] in place: buf (B,L,...), val (B,...)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(buf, DTensor):
+        # DTensor has no in-place index_put (none at all in some releases,
+        # none on a sharded cache in others): every shard writes through a
+        # mask of its own positions, as a sharded dynamic_update_slice runs
+        hit = torch.arange(buf.shape[1], device=buf.device)[None, :] == idx[:, None]
+        hit = hit.reshape(hit.shape + (1,) * (buf.dim() - 2))
+        buf.copy_(torch.where(hit, val[:, None], buf))
+        return
+    buf[torch.arange(buf.shape[0], device=buf.device), idx.long()] = val
+
+
 def attention_scan_flops(B, Sq, Sk, H, D, causal: bool) -> float:
     """Analytic FLOPs of the chunked-attention scan (QK^T + PV), which the
     JAX package declares for its cost-analysis correction. Causal halves
@@ -238,10 +289,10 @@ def apply_attention(
     key/value into the cache buffers in place (the JAX version returns
     updated copies)."""
     B, S, _ = x.shape
-    q = torch.einsum("bsd,dkgh->bskgh", x, p["wq"].to(x.dtype))  # (B,S,KV,G,hd)
+    q = _project(x, p["wq"].to(x.dtype))  # (B,S,KV,G,hd)
     src = x if kv_src is None else kv_src
-    k = torch.einsum("bsd,dkh->bskh", src, p["wk"].to(x.dtype))  # (B,Sk,KV,hd)
-    v = torch.einsum("bsd,dkh->bskh", src, p["wv"].to(x.dtype))
+    k = _project(src, p["wk"].to(x.dtype))  # (B,Sk,KV,hd)
+    v = _project(src, p["wv"].to(x.dtype))
     if "qnorm" in p:
         q = apply_head_norm(p["qnorm"], q)
         k = apply_head_norm(p["knorm"], k)
@@ -249,6 +300,9 @@ def apply_attention(
         cos, sin = rope_freqs(cfg, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = lac(q, "batch", None, "kv_heads", "q_per_kv", None)
+    k = lac(k, "batch", None, "kv_heads", None)
+    v = lac(v, "batch", None, "kv_heads", None)
 
     new_cache = None
     scan_flops = 0.0
@@ -256,10 +310,9 @@ def apply_attention(
         if cache is None or S != 1:
             raise ValueError("decode takes one token per sequence and a cache")
         idx = cache["len"]  # (B,) current lengths
-        rows = torch.arange(B, device=x.device)
         kc, vc = cache["k"], cache["v"]
-        kc[rows, idx.long()] = k[:, 0]
-        vc[rows, idx.long()] = v[:, 0]
+        _write_slot(kc, idx, k[:, 0])
+        _write_slot(vc, idx, v[:, 0])
         new_cache = {"k": kc, "v": vc, "len": idx + 1}
         out = _einsum_attention(
             q, kc, vc, causal=False, softcap=cfg.attn_logit_softcap, kv_len=idx + 1
@@ -284,15 +337,16 @@ def apply_attention(
             # self-attention is the encoder's, which JAX runs in train mode
             # inside every prefill: there the forward-only kernel serves it
             if records or (mode == "train" and causal):
-                out = _flash_attention_qchunked(q, k, v, causal=causal,
-                                                softcap=cfg.attn_logit_softcap)
+                out = _per_shard(_flash_attention_qchunked, q, k, v, causal=causal,
+                                 softcap=cfg.attn_logit_softcap)
             else:
                 out = ops.flash_attention(q, k, v, causal=causal,
                                           softcap=cfg.attn_logit_softcap)
             scan_flops = attention_scan_flops(B, S, S, cfg.num_heads, cfg.head_dim, causal)
         else:
-            out = _einsum_attention(q, k, v, causal=causal,
-                                    softcap=cfg.attn_logit_softcap)
+            out = _per_shard(_einsum_attention, q, k, v, causal=causal,
+                             softcap=cfg.attn_logit_softcap)
+    out = lac(out, "batch", None, "kv_heads", "q_per_kv", None)
     y = torch.einsum("bskgd,kgdm->bsm", out, p["wo"].to(x.dtype))
     return y, new_cache, scan_flops
 
@@ -305,15 +359,15 @@ def apply_cross_attention(p, cfg, x, enc_out, *, cache=None, mode="train"):
     decode: reuses the cached K/V and passes the cache through; nothing
     writes into it.
     """
-    q = torch.einsum("bsd,dkgh->bskgh", x, p["wq"].to(x.dtype))
+    q = _project(x, p["wq"].to(x.dtype))
     if mode == "decode" and cache is not None:
         k, v = cache["k"], cache["v"]
         new_cache = cache
     else:
         if enc_out is None:
             raise ValueError("cross-attention needs enc_out outside decode")
-        k = torch.einsum("bsd,dkh->bskh", enc_out, p["wk"].to(x.dtype))
-        v = torch.einsum("bsd,dkh->bskh", enc_out, p["wv"].to(x.dtype))
+        k = _project(enc_out, p["wk"].to(x.dtype))
+        v = _project(enc_out, p["wv"].to(x.dtype))
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
     out = _einsum_attention(q, k, v, causal=False, softcap=0.0)
     y = torch.einsum("bskgd,kgdm->bsm", out, p["wo"].to(x.dtype))
@@ -344,4 +398,5 @@ def apply_mlp(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU (silu(x·wg) ⊙ x·wi)·wo, or gelu(x·wi)·wo without ``wg``."""
     h = x @ p["wi"].to(x.dtype)
     h = F.silu(x @ p["wg"].to(x.dtype)) * h if "wg" in p else gelu(h)
+    h = lac(h, "batch", "seq", "mlp")
     return h @ p["wo"].to(x.dtype)

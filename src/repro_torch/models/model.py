@@ -16,7 +16,10 @@ encoder's output, and the encoder's aux losses come back ``enc_``-prefixed
 and join the loss.
 
 Parameters are plain nested dicts/tuples of tensors with the JAX package's
-tree structure (``models.bridge`` converts a JAX tree into one).
+tree structure (``models.bridge`` converts a JAX tree into one), or the
+same trees of DTensors placed by ``repro_torch.sharding`` rules; the
+embedding, the head and every layer's residual output then carry the
+reference's activation constraints (``lac``).
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import apply_norm, norm_spec, remat
-from repro_torch.models.schema import ParamSpec, init_tree, param_count
+from repro_torch.models.schema import (ParamSpec, abstract_tree, axes_tree, init_tree,
+                                       param_count)
+from repro_torch.sharding import lac
 from repro_torch.tree import tree_map
 
 
@@ -56,6 +61,13 @@ class Model:
         """Random parameters on ``gen.device``, drawn from ``gen``."""
         return init_tree(self.spec(), gen, self.cfg.param_dtype)
 
+    def abstract_params(self):
+        """The params as ``meta`` tensors: shapes and dtypes, no storage."""
+        return abstract_tree(self.spec(), self.cfg.param_dtype)
+
+    def param_axes(self):
+        return axes_tree(self.spec())
+
     def n_params(self) -> int:
         return param_count(self.spec())
 
@@ -71,17 +83,26 @@ class Model:
         return tree_map(lambda s: torch.zeros(s[0], dtype=s[1], device=device),
                         self.cache_spec(batch, max_len), is_leaf=T._is_shape_dtype)
 
+    def cache_axes(self):
+        return {
+            "stack": T.stack_cache_axes(self.cfg, decoder=self.cfg.encoder_decoder),
+            "pos": ("cache_batch",),
+        }
+
     # ------------------------------------------------------------ forward
     def _embed(self, params, tokens):
         # gather, then cast: the same values as casting the table first
-        return F.embedding(tokens, params["embed"]).to(self.cfg.compute_dtype)
+        x = embed_lookup(tokens, params["embed"])
+        return lac(x, "batch", "act_seq", "embed_shard").to(self.cfg.compute_dtype)
 
     def _head(self, params, x):
         cfg = self.cfg
         x = apply_norm(params["final_ln"], x)
         if cfg.tie_embeddings:
-            return x @ params["embed"].to(cfg.compute_dtype).T
-        return x @ params["lm_head"].to(cfg.compute_dtype)
+            logits = x @ params["embed"].to(cfg.compute_dtype).T
+        else:
+            logits = x @ params["lm_head"].to(cfg.compute_dtype)
+        return lac(logits, "batch", "act_seq", "logit_vocab")
 
     def encode(self, params, frames):
         """frames (B,F,D) stub embeddings → (enc_out (B,F,D), aux). The
@@ -174,15 +195,64 @@ class Model:
         return loss, metrics
 
 
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``. Over a vocab-sharded DTensor table it
+    is the reference's partitioned gather: each shard looks up the tokens
+    that fall in its rows and zeroes the rest, a partial sum that the
+    caller's ``lac`` reduces (``local_map``, whose backward writes each
+    shard's rows; DTensor's own embedding gives a masked partial that the
+    ops after it and its backward cannot take). A table sharded over its
+    feature dim is gathered there first (tokens own that mesh dim)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    tab_pl = tuple(Replicate() if p == Shard(1) else p for p in table.placements)
+    tok_pl = tuple(Replicate() if tp == Shard(0) else p
+                   for p, tp in zip(tokens.placements, tab_pl))
+    table = table.redistribute(mesh, tab_pl)
+    tokens = tokens.redistribute(mesh, tok_pl)
+    out_pl = [Partial() if tp == Shard(0) else p for p, tp in zip(tok_pl, tab_pl)]
+    # a shard's table grad sums its own tokens' rows only: a partial sum over
+    # each mesh dim that splits the tokens
+    grad_pl = tuple(Partial() if isinstance(p, Shard) else tp for p, tp in zip(tok_pl, tab_pl))
+    rows, (lo, _) = compute_local_shape_and_global_offset(table.shape, mesh, tab_pl)
+
+    def lookup(tok, tab):
+        rel = tok.long() - lo
+        hit = (rel >= 0) & (rel < rows[0])
+        out = F.embedding(torch.where(hit, rel, 0), tab)
+        return torch.where(hit[..., None], out, 0)
+
+    return local_map(lookup, out_placements=out_pl, in_placements=(tok_pl, tab_pl),
+                     in_grad_placements=(tok_pl, grad_pl), device_mesh=mesh)(tokens, table)
+
+
 def build_model(cfg) -> Model:
     return Model(cfg)
 
 
 # ------------------------------------------------------------------- loss
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim, as log Σ exp(x − max) + max with the max
+    held constant (its gradient cancels): over vocab-sharded logits it takes
+    two reductions of (B, S) across the shards where ``torch.logsumexp``
+    would gather the logits."""
+    m = lac(x.detach().amax(-1, keepdim=True), "batch", "act_seq", None)
+    return lac((x - m).exp().sum(-1), "batch", "act_seq").log() + m[..., 0]
+
+
 def _label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The logit of each label in f32: the value JAX's one-hot einsum
     picks, gathered instead."""
-    return logits.gather(-1, labels.long()[..., None])[..., 0].float()
+    picked = logits.gather(-1, labels.long()[..., None])
+    # over a vocab-sharded DTensor the gather is a masked partial sum that
+    # must be reduced before any other op reads it
+    return lac(picked, "batch", "act_seq", None)[..., 0].float()
 
 
 def chunked_lm_loss(model: Model, params: dict, x: torch.Tensor, labels: torch.Tensor,
@@ -199,7 +269,7 @@ def chunked_lm_loss(model: Model, params: dict, x: torch.Tensor, labels: torch.T
 
     def one(xx, ll, mm):
         logits = model._head(params, xx)  # (B,chunk,V)
-        lse = torch.logsumexp(logits.float(), dim=-1)
+        lse = _logsumexp(logits.float())
         ce = ((lse - _label_logits(logits, ll)) * mm).sum()
         zz = ((lse ** 2) * mm).sum()
         return ce, zz, mm.sum()
@@ -217,7 +287,7 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
             mask: Optional[torch.Tensor] = None, z_weight: float = 1e-4):
     """Cross-entropy of (B,S,V) logits at labels (B,S), with the z-loss;
     mask (B,S) {0,1}. Returns (loss, {ce, zloss})."""
-    lse = torch.logsumexp(logits.float(), dim=-1)  # (B,S)
+    lse = _logsumexp(logits.float())  # (B,S)
     ce = lse - _label_logits(logits, labels)
     mask = torch.ones_like(ce) if mask is None else mask.float()
     denom = torch.clamp_min(mask.sum(), 1.0)

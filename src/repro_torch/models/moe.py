@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import gelu
 from repro_torch.models.schema import ParamSpec
+from repro_torch.sharding import lac
 
 
 def moe_spec(cfg) -> dict:
@@ -86,6 +87,7 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     xp = torch.cat([x, x.new_zeros((B, 1, D))], 1).reshape(B * (S + 1), D)  # pad row S
     rows = (slot2tok + (S + 1) * torch.arange(B, device=dev)[:, None]).reshape(-1)
     xe = xp.index_select(0, rows).reshape(B, E, C, D)
+    xe = lac(xe, "batch", "experts", None, None)
 
     # ---- expert FFN
     h = torch.einsum("becd,edf->becf", xe, p["wi"].to(x.dtype))
@@ -94,7 +96,11 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
         h = F.silu(g) * h
     else:
         h = gelu(h)
+    # the einsum above leaves h a DTensor whose global strides are permuted
+    # while its shards are contiguous; the next einsum's views need them to agree
+    h = h.contiguous()
     ye = torch.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))
+    ye = lac(ye, "batch", "experts", None, None)
 
     # ---- combine: gather each (token,k) result from its slot, weight, sum
     yef = torch.cat([ye.reshape(B, E * C, D), ye.new_zeros((B, 1, D))], 1)
@@ -102,6 +108,7 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     ytk = yef.reshape(B * (E * C + 1), D).index_select(0, rows).reshape(B, T, D)
     w = (gate.reshape(B, T) * keep).to(x.dtype)
     y = (ytk * w[..., None]).reshape(B, S, K, D).sum(2)
+    y = lac(y, "batch", "seq", None)
     return y, {"moe_aux": aux, "moe_z": zloss}
 
 

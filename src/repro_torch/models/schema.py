@@ -1,6 +1,8 @@
 """Parameter schema (port of ``src/repro/models/schema.py``): one tree of
-:class:`ParamSpec` gives the parameters' shapes, their init and their
-count. Parameters are plain nested dicts/tuples of tensors."""
+:class:`ParamSpec` gives the parameters' shapes, their init, their count,
+their logical axes (``axes_tree``, read by ``repro_torch.sharding``) and
+their abstract stand-ins on the ``meta`` device (``abstract_tree``).
+Parameters are plain nested dicts/tuples of tensors."""
 from __future__ import annotations
 
 import math
@@ -69,6 +71,19 @@ def init_tree(spec_tree, gen: torch.Generator, default_dtype=torch.float32):
     differ from ``jax.random``'s, so parity tests bridge JAX weights)."""
     return tree_map(lambda s: materialize(s, gen, default_dtype), spec_tree,
                     is_leaf=is_spec)
+
+
+def axes_tree(spec_tree):
+    """The logical-axis tree (same structure, tuples of axis names)."""
+    return tree_map(lambda s: s.axes, spec_tree, is_leaf=is_spec)
+
+
+def abstract_tree(spec_tree, default_dtype=torch.float32):
+    """Tensors on the ``meta`` device (shape and dtype, no storage), each
+    in its spec's dtype or ``default_dtype``."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype or default_dtype,
+                                          device="meta"),
+                    spec_tree, is_leaf=is_spec)
 
 
 def param_count(spec_tree) -> int:

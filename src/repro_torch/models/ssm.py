@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.schema import ParamSpec
+from repro_torch.sharding import lac
 
 
 def mamba_dims(cfg):
@@ -162,12 +163,14 @@ def apply_mamba(p: dict, cfg, x: torch.Tensor, *, cache: Optional[dict] = None,
     xBC, new_conv = _causal_conv(xBC, p["conv"].to(dt_x.dtype), conv_state)
     xBC = F.silu(xBC)
     xin, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    xin = lac(xin, "batch", "seq", "inner")
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B,S,H)
     A = -torch.exp(p["A_log"].float())  # (H,) negative
     a_log = dt * A[None, None, :]  # ≤ 0
 
     xh = xin.reshape(B, S, H, P)
+    xh = lac(xh, "batch", None, "inner_heads", None)
     if mode == "decode":
         if S != 1 or cache is None:
             raise ValueError("decode takes one token per sequence and a cache")
@@ -185,6 +188,7 @@ def apply_mamba(p: dict, cfg, x: torch.Tensor, *, cache: Optional[dict] = None,
     y = y + xh.float() * p["Dskip"].float()[None, None, :, None]
     y = y.reshape(B, S, di).to(dt_x.dtype)
     y = _gated_rmsnorm(y, z, p["gnorm"])
+    y = lac(y, "batch", "seq", "inner")
     return y @ p["wo"].to(dt_x.dtype), new_cache
 
 

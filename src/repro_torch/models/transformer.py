@@ -36,6 +36,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.models.accounting import add_scan_flops
 from repro_torch.models.schema import ParamSpec
+from repro_torch.sharding import is_axes, lac
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -151,13 +152,67 @@ def _is_shape_dtype(x) -> bool:
             and isinstance(x[1], torch.dtype))
 
 
+def layer_cache_axes(cfg, kind: str, decoder: bool = False):
+    """Logical-axis tree mirroring layer_cache_spec (for cache shardings)."""
+    if kind == "attn":
+        c = {
+            "kv": {
+                "k": ("cache_batch", "kv_seq", "kv_heads", "head_dim"),
+                "v": ("cache_batch", "kv_seq", "kv_heads", "head_dim"),
+                "len": ("cache_batch",),
+            }
+        }
+        if decoder and cfg.encoder_decoder:
+            c["cross"] = {
+                "k": ("cache_batch", None, "kv_heads", "head_dim"),
+                "v": ("cache_batch", None, "kv_heads", "head_dim"),
+            }
+        return c
+    if kind == "mamba":
+        return {"conv": ("cache_batch", None, None),
+                "ssm": ("cache_batch", "inner", None, None)}
+    if kind == "mlstm":
+        return {
+            "conv": ("cache_batch", None, None),
+            "mlstm": (
+                ("cache_batch", "heads", None, None),
+                ("cache_batch", "heads", None),
+                ("cache_batch", "heads"),
+            ),
+        }
+    if kind == "slstm":
+        return {
+            "conv": ("cache_batch", None, None),
+            "slstm": tuple(("cache_batch", "heads", None) for _ in range(4)),
+        }
+    raise ValueError(kind)
+
+
+def stack_cache_axes(cfg, num_layers: Optional[int] = None, decoder: bool = False):
+    layout = period_layout(cfg)
+    n = n_periods(cfg, num_layers)
+    period = tuple(layer_cache_axes(cfg, k, decoder) for k, _ in layout)
+    if cfg.scan_layers and n > 1:
+        return {"scan": tree_map(lambda a: ("layers",) + a, period, is_leaf=is_axes)}
+    return {"unroll": period * n}
+
+
 # ------------------------------------------------------------- layer body
+def _sublayer_input(p_norm: dict, x: torch.Tensor) -> torch.Tensor:
+    """The normed residual that a sublayer reads. Under rules that shard the
+    residual's sequence (``act_seq``) a sublayer works on the whole sequence
+    ("seq"): the normed activation is gathered here once, as sequence
+    parallelism does, where a DTensor projection would otherwise merge the
+    batch and sequence shards into one dim that it cannot split again."""
+    return lac(L.apply_norm(p_norm, x), "batch", "seq", None)
+
+
 def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
                 cache: Optional[dict], mode: str, enc_out: Optional[torch.Tensor] = None,
                 causal: bool = True, max_len: Optional[int] = None):
     """Pre-norm residual layer. Returns (x, new_cache, aux)."""
     aux: Dict[str, torch.Tensor] = {}
-    h = L.apply_norm(p["ln1"], x)
+    h = _sublayer_input(p["ln1"], x)
     if kind == "attn":
         out, kvc, sf = L.apply_attention(
             p["attn"], cfg, h, positions=positions, causal=causal,
@@ -169,7 +224,7 @@ def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
         new_cache = {"kv": kvc} if kvc is not None else None
         if "cross" in p:  # decoder cross-attention sublayer
             cout, cc = L.apply_cross_attention(
-                p["cross"], cfg, L.apply_norm(p["lnx"], x), enc_out,
+                p["cross"], cfg, _sublayer_input(p["lnx"], x), enc_out,
                 cache=cache["cross"] if cache else None, mode=mode,
             )
             x = x + cout
@@ -183,10 +238,11 @@ def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
         out, new_cache = apply(p[kind], cfg, h, cache=cache, mode=mode)
         x = x + out
     if "moe" in p:
-        y, aux = M.apply_moe(p["moe"], cfg, L.apply_norm(p["ln2"], x))
+        y, aux = M.apply_moe(p["moe"], cfg, _sublayer_input(p["ln2"], x))
         x = x + y
     elif "mlp" in p:
-        x = x + L.apply_mlp(p["mlp"], cfg, L.apply_norm(p["ln2"], x))
+        x = x + L.apply_mlp(p["mlp"], cfg, _sublayer_input(p["ln2"], x))
+    x = lac(x, "batch", "act_seq", "residual")
     return x, new_cache, aux
 
 
@@ -217,9 +273,20 @@ def _apply_period(pp, cfg, layout, x, *, positions, caches, mode, enc_out, causa
 
 
 def _write_back(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    if dst.data_ptr() != src.data_ptr():  # in-place updates alias already
+    if not _aliases(dst, src):  # in-place updates alias already
         dst.copy_(src)
     return dst
+
+
+def _aliases(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``b`` lies in ``a``'s memory: the same storage at the same
+    offset (a DTensor's: its shard's, which has no pointer of its own; a
+    meta tensor's: its storage, whose pointer is 0)."""
+    from torch.distributed.tensor import DTensor
+
+    a, b = (t.to_local() if isinstance(t, DTensor) else t for t in (a, b))
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
 
 
 def apply_stack(params: dict, cfg, x: torch.Tensor, *, positions, caches=None,

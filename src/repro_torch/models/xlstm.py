@@ -24,6 +24,7 @@ from repro_torch.models.accounting import add_scan_flops
 from repro_torch.models.layers import NEG_INF, gelu
 from repro_torch.models.schema import ParamSpec
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.sharding import lac, lac_split
 
 MLSTM_CHUNK = 64
 
@@ -138,12 +139,12 @@ def apply_mlstm(p, cfg, x, *, cache=None, mode="train"):
     B, S, _ = x.shape
     up = x @ p["wup"].to(x.dtype)
     u, z = up.chunk(2, -1)
+    u = lac(u, "batch", "seq", "inner")
     conv_state = cache.get("conv") if cache else None
     c, new_conv = _causal_conv(u, p["conv"].to(x.dtype), conv_state)
     c = F.silu(c)
-    q = (c @ p["wq"].to(x.dtype)).reshape(B, S, H, P)
-    k = (c @ p["wk"].to(x.dtype)).reshape(B, S, H, P)
-    v = (u @ p["wv"].to(x.dtype)).reshape(B, S, H, P)
+    q, k, v = (lac_split(a @ p[w].to(x.dtype), H, "batch", "seq", "heads").reshape(B, S, H, P)
+               for a, w in ((c, "wq"), (c, "wk"), (u, "wv")))
     gates = (c @ p["wif"].to(x.dtype)).float() + p["if_bias"].float()
     logi, logf_raw = gates.chunk(2, -1)  # (B,S,H)
     logf = F.logsigmoid(logf_raw)
@@ -163,6 +164,9 @@ def apply_mlstm(p, cfg, x, *, cache=None, mode="train"):
     hf = h.float().reshape(B, S, H, P)
     ms = hf.square().mean(-1, keepdim=True)
     hf = (hf * torch.rsqrt(ms + 1e-5)).reshape(B, S, di)
+    # constrained as it leaves the per-head layout, so that its gradient
+    # comes back in a layout that splits into heads again
+    hf = lac_split(hf, H, "batch", "seq", "heads")
     hf = hf * p["gnorm"].float() * F.silu(z.float())
     y = hf.to(x.dtype) @ p["wo"].to(x.dtype)
     return y, new_cache
@@ -224,6 +228,9 @@ def apply_slstm(p, cfg, x, *, cache=None, mode="train"):
     cx, new_conv = _causal_conv(x, p["conv"].to(x.dtype), conv_state)
     cx = F.silu(cx)
     wx = (cx @ p["wx"].to(x.dtype)).float() + p["bias"].float()  # (B,S,4d)
+    # each step splits the 4d pre-activations into (4, H, dh): a DTensor
+    # shard of the flat dim may not split so, so they are gathered once here
+    wx = lac(wx, "batch", "seq", None)
 
     if cache and "slstm" in cache:
         st = cache["slstm"]

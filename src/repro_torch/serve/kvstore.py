@@ -361,6 +361,10 @@ class KvCacheStore:
             })
         arrivals = self._run_specs(specs, write=False)
         blob = self._assemble(arrivals)[: entry.size]
+        if len(blob) != entry.size:
+            raise IOError(f"kv fetch of {entry.key} from shard {shard} ({base}): {len(blob)} "
+                          f"bytes of the {entry.size} put, from {len(arrivals)} of "
+                          f"{entry.nchunks} chunks")
         with self._lock:
             self.stats.fetches += 1
             self.stats.fetch_bytes += len(blob)
@@ -374,15 +378,13 @@ class KvCacheStore:
         assembly reorders it (``_assemble``)."""
         if self.router is None and self.off is None:
             return self._run_local(specs, write=write)
-        arrivals: List[tuple] = []
+        order: List[int] = []
         alock = threading.Lock()
 
         def on_done(idx):
             def _cb(f):
-                if f.exception() is None:
-                    payload = f.result()[0]  # may block: resolve OUTSIDE alock
-                    with alock:
-                        arrivals.append((idx, payload))
+                with alock:
+                    order.append(idx)
             return _cb
 
         if self.router is not None:
@@ -408,7 +410,13 @@ class KvCacheStore:
                     first_exc = e
         if first_exc is not None:
             raise first_exc
-        return arrivals
+        # a future wakes its waiters before it runs its callbacks, so the
+        # last completions may not be logged yet: they follow in index order
+        with alock:
+            seen = list(order)
+        logged = set(seen)
+        seen += [i for i in range(len(futs)) if i not in logged]
+        return [(i, futs[i].result()[0]) for i in seen]
 
     def _run_local(self, specs: List[dict], *, write: bool) -> List[tuple]:
         """No plane: the initiator does its own chunk I/O — under the

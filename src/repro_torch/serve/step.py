@@ -7,6 +7,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.sharding import lac
 
 
 def make_prefill_step(model: Model, max_len: int):
@@ -29,7 +30,10 @@ def make_decode_step(model: Model):
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    # over vocab-sharded DTensor logits the argmax reads the whole row: the
+    # last position's logits are gathered over the vocab first
+    last = lac(logits[:, -1], "batch", None)
+    return torch.argmax(last, dim=-1).to(torch.int32)[:, None]
 
 
 @torch.inference_mode()

@@ -10,8 +10,11 @@ new params and state into the tensors it is given and returns them: at
 qwen3-1.7b's 2.03 B f32 parameters a functional update would hold a
 second 24 GB copy of params and moments.
 
-ZeRO-1 (``zero1_*``) needs a device mesh and comes with the distribution
-slice.
+ZeRO-1 (``zero1_*``) gives the optimizer state's PartitionSpecs: each
+param's spec with the data-parallel axes added on its first unsharded dim
+that they divide. Under those specs the moments are DTensors sharded
+further than their params, and the in-place update computes each shard
+where it lies, then writes the params back at their own placements.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding import PartitionSpec, is_spec, mesh_shape
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -164,3 +168,49 @@ def for_config(cfg, total_steps: int = 10000) -> Optimizer:
     if cfg.name in ("grok-1-314b", "jamba-1.5-large-398b"):
         return adafactor(lr=1e-2, schedule=sched)
     return adamw(lr=3e-4, schedule=sched)
+
+
+# ------------------------------------------------------------------ ZeRO-1
+def zero1_extend_spec(spec: PartitionSpec, shape, mesh, dp_axes) -> PartitionSpec:
+    """Extend a state leaf's PartitionSpec with dp axes on the first
+    unsharded dim divisible by the dp size."""
+    axes = mesh_shape(mesh)
+    dp = tuple(a for a in dp_axes if a in axes)
+    if not dp:
+        return spec
+    dp_size = math.prod(axes[a] for a in dp)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for i, e in enumerate(entries):
+        if e is None and shape[i] % dp_size == 0 and shape[i] > 0:
+            entries[i] = dp if len(dp) > 1 else dp[0]
+            break
+    while entries and entries[-1] is None:
+        entries.pop()
+    return PartitionSpec(*entries)
+
+
+def zero1_state_specs(opt: Optimizer, param_spec_tree, abstract_params, mesh, dp_axes):
+    """PartitionSpec tree for optimizer state under ZeRO-1 (Adafactor's
+    factored ``vr``/``vc`` take the param spec without its last or
+    second-to-last entry, unextended)."""
+    flat_sp = tree_leaves(param_spec_tree, is_leaf=is_spec)
+    flat_ab = tree_leaves(abstract_params)
+
+    def rebuild(leaves):
+        it = iter(leaves)
+        return tree_map(lambda _: next(it), param_spec_tree, is_leaf=is_spec)
+
+    if opt.name in ("adamw", "sgd"):
+        t = rebuild([zero1_extend_spec(sp, ab.shape, mesh, dp_axes)
+                     for sp, ab in zip(flat_sp, flat_ab)])
+        return {"m": t, "v": t} if opt.name == "adamw" else {"mom": t}
+    if opt.name == "adafactor":
+        def leaf(sp, ab):
+            if ab.dim() >= 2:
+                entries = list(sp) + [None] * (ab.dim() - len(sp))
+                return {"vr": PartitionSpec(*entries[:-1]),
+                        "vc": PartitionSpec(*(entries[:-2] + entries[-1:]))}
+            return {"v": zero1_extend_spec(sp, ab.shape, mesh, dp_axes)}
+
+        return rebuild([leaf(sp, ab) for sp, ab in zip(flat_sp, flat_ab)])
+    raise ValueError(opt.name)

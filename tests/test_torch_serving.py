@@ -172,6 +172,39 @@ def test_offloader_plane_roundtrip():
     assert store.stats.fetch_chunks > 1
 
 
+def test_fetch_whole_when_callbacks_lag_their_futures(monkeypatch):
+    """A future wakes ``result()`` before it runs its done callbacks; a
+    fetch that waited on every chunk still gets every chunk's bytes."""
+    import time
+
+    from repro_torch.core import rpc
+
+    def lagging_finish(self):
+        self._event.set()
+        time.sleep(0.01)  # the waiter runs on before the callbacks
+        with self._lock:
+            cbs, self._callbacks = self._callbacks, []
+        for cb in cbs:
+            cb(self)
+
+    _, fs, off = build_plane()
+    store = KvCacheStore(fs, off=off, chunk_blocks=1, device="cpu")
+    cache = small_cache()
+    store.put([2, 7, 1, 8], cache)
+    monkeypatch.setattr(rpc.RpcFuture, "_finish", lagging_finish)
+    assert caches_equal(cache, store.fetch([2, 7, 1, 8]))
+    assert store.stats.fetch_bytes == store.stats.put_bytes
+
+
+def test_fetch_shorter_than_the_put_names_the_shard(monkeypatch):
+    _, fs, off = build_plane()
+    store = KvCacheStore(fs, off=off, chunk_blocks=1, device="cpu")
+    store.put([2, 7, 1, 8], small_cache())
+    monkeypatch.setattr(store, "_assemble", lambda arrivals: b"\0" * 100)
+    with pytest.raises(IOError, match=r"from shard \d+ .*100 bytes of the \d+ put"):
+        store.fetch([2, 7, 1, 8])
+
+
 # ---------------------------------------------------- LRU/TTL eviction
 def test_lru_eviction_caps_bytes_and_recomputes_identical():
     clock = [0.0]
