@@ -139,7 +139,18 @@ exits non-zero without the final line:
                dry run of those cells at full batch on the fake 16x16 and
                2x16x16 meshes in a child process (6 OK, 2 SKIP, every OK
                row with collective bytes, a peak and the three roofline
-               terms) and a plan of all 32 cells x 2 meshes.
+               terms) and a plan of all 32 cells x 2 meshes. The same for
+               xlstm-125m at full width and depth (train_4k 256 -> 2 with
+               its sequence cut 4,096 -> 1,024; prefill_32k 32 -> 1 with
+               its sequence cut 32,768 -> 4,096;
+               decode_32k 128 -> 8, the whole recurrent state bit-equal),
+               the first run of its per-shard loops and of the mLSTM
+               gate's sharding strategy on the card, and
+               seamless-m4t-large-v2's prefill_32k (32 -> 1; 24 non-causal
+               and 24 causal flash launches a call, through the flash op's
+               sharding strategy under the rules); its dry run of all 4
+               cells x 2 meshes in parallel processes beside the card work
+               (8 OK).
 
 The train phases, and distribution's train cell, run under
 ``torch.use_deterministic_algorithms(True)``,
@@ -156,6 +167,7 @@ import gc
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -2342,15 +2354,54 @@ DIST_CUTS = {
     "decode_32k": (8, "global batch 128 -> 8"),
 }
 DIST_SEED = 19
+# xlstm-125m at full width and depth; its sequences are cut too: on plain
+# tensors the sLSTM loop launches ~20 kernels a step (a prefill of 4,096
+# took 3.14 s, 82 % of it that loop), so a prefill of 32,768 would take ~25
+# s a call, and a train step at 4,096 took 46.0 s, 8 calls a cell
+DIST_XLSTM = "xlstm-125m"
+XLSTM_CUTS = {
+    "train_4k": (2, "global batch 256 -> 2 (microbatches 1, TRAIN_MICROBATCHES); sequence "
+                    "4,096 -> 1,024 (a step at 4,096 takes 46 s: the sLSTM loop's ~20 "
+                    "launches a step, forward and backward)"),
+    "prefill_32k": (1, "global batch 32 -> 1; sequence 32,768 -> 4,096 (the sLSTM loop "
+                       "launches ~20 kernels a step)"),
+    "decode_32k": (8, "global batch 128 -> 8"),
+}
+XLSTM_TRAIN_SEQ, XLSTM_PREFILL_SEQ = 1024, 4096
+DIST_SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_CUTS = {"prefill_32k": (1, "global batch 32 -> 1")}
 
 
 def _dist_tokens(abstract, vocab, seed):
+    """Random tokens for each int32 leaf of ``abstract``, and standard
+    normal values for a float one (an audio frontend's frames), from
+    ``seed``."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    return {k: torch.from_numpy(rng.integers(0, vocab, tuple(v.shape)).astype(np.int32)).cuda()
-            for k, v in abstract.items()}
+
+    def make(v):
+        if v.dtype == torch.int32:
+            return torch.from_numpy(rng.integers(0, vocab, tuple(v.shape)).astype(np.int32))
+        return torch.from_numpy(rng.standard_normal(tuple(v.shape)).astype(np.float32)).to(
+            v.dtype)
+
+    return {k: make(v).cuda() for k, v in abstract.items()}
+
+
+def _flash_per_prefill(cfg, S: int) -> int:
+    """Flash launches of one prefill of S tokens: one an attention layer of
+    a stack longer than ``layers.FLASH_THRESHOLD`` (an encoder's over its
+    frames too), as ``arch_run`` counts them."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import n_periods, period_layout
+
+    attn = sum(kind == "attn" for kind, _ in period_layout(cfg))
+    n = n_periods(cfg) * attn if S > layers.FLASH_THRESHOLD else 0
+    if cfg.encoder_decoder and cfg.frontend_seq > layers.FLASH_THRESHOLD:
+        n += n_periods(cfg, cfg.num_encoder_layers) * attn
+    return n
 
 
 def _whole(t):
@@ -2431,7 +2482,7 @@ def _bit_equal(want, got, what: str) -> int:
     return len(w)
 
 
-def _dist_train(mesh):
+def _dist_train(mesh, arch=DIST_ARCH, cuts=DIST_CUTS, seq=None):
     """One train step of the cut cell without rules and with them, from the
     same seeded params, under ``deterministic()``: loss, grad_norm, the
     step, every updated param and AdamW moment bit-equal."""
@@ -2440,8 +2491,8 @@ def _dist_train(mesh):
     from repro_torch.launch.specs import plan_cell
     from repro_torch.train import optim
 
-    batch_n, cut = DIST_CUTS["train_4k"]
-    plan = plan_cell(DIST_ARCH, "train_4k", mesh, batch=batch_n)
+    batch_n, cut = cuts["train_4k"]
+    plan = plan_cell(arch, "train_4k", mesh, batch=batch_n, seq=seq)
     opt = optim.for_config(plan.cfg)
     batch = _dist_tokens(plan.abstract_args[1], plan.cfg.vocab_size, DIST_SEED)
 
@@ -2468,20 +2519,23 @@ def _dist_train(mesh):
     return rec
 
 
-def _dist_serve(mesh):
-    """The cut prefill cell (flash once a layer, in both runs) and the cut
-    decode cell (one step against a full 32,768-entry cache of random
-    keys and values, every row writing its last slot), each without rules
-    and with them: logits, greedy tokens and caches bit-equal."""
+def _dist_serve(mesh, arch=DIST_ARCH, cuts=DIST_CUTS, prefill_seq=None):
+    """The cut prefill cell (flash once an attention layer, in both runs)
+    and, where ``cuts`` has it, the cut decode cell (one step against a
+    full 32,768-entry cache of random keys and values, every row writing
+    its last slot; a recurrent state of random values, restored before
+    every call), each without rules and with them: logits, greedy tokens
+    and caches bit-equal."""
     import torch
 
     from repro_torch.launch.specs import plan_cell
+    from repro_torch.models.transformer import period_layout
     from repro_torch.serve.step import make_decode_step
     from repro_torch.tree import tree_leaves, tree_map
 
     recs = []
-    pb, pcut = DIST_CUTS["prefill_32k"]
-    plan = plan_cell(DIST_ARCH, "prefill_32k", mesh, batch=pb)
+    pb, pcut = cuts["prefill_32k"]
+    plan = plan_cell(arch, "prefill_32k", mesh, batch=pb, seq=prefill_seq)
     params = plan.model.init(torch.Generator("cuda").manual_seed(DIST_SEED))
     batch = _dist_tokens(plan.abstract_args[1], plan.cfg.vocab_size, DIST_SEED + 1)
     def compare_prefill(want, got):
@@ -2496,15 +2550,19 @@ def _dist_serve(mesh):
 
     with torch.inference_mode():
         rec = _dist_run(plan, lambda: (params, batch), compare_prefill)
-    layers = plan.cfg.num_layers
-    check(rec["flash_launches"] == [layers, layers],
-          f"prefill flash launches {rec['flash_launches']}, want {layers} in each run")
+    flash = _flash_per_prefill(plan.cfg, plan.cell.seq_len)
+    check(rec["flash_launches"] == [flash, flash],
+          f"prefill flash launches {rec['flash_launches']}, want {flash} in each run")
     rec.update(cell="prefill_32k", cut=pcut, batch=pb, seq=plan.cell.seq_len)
     recs.append(rec)
     _free()
+    if "decode_32k" not in cuts:
+        del params
+        _free()
+        return recs
 
-    db, dcut = DIST_CUTS["decode_32k"]
-    plan = plan_cell(DIST_ARCH, "decode_32k", mesh, batch=db)
+    db, dcut = cuts["decode_32k"]
+    plan = plan_cell(arch, "decode_32k", mesh, batch=db)
     L = plan.cell.seq_len
     gen = torch.Generator("cuda").manual_seed(DIST_SEED + 2)
 
@@ -2518,12 +2576,17 @@ def _dist_serve(mesh):
     cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
     step = make_decode_step(plan.model)
     written = []
+    # a KV cache: each step writes each row's last slot; a recurrent state
+    # (no attention layer): each step rewrites all of it, from a kept copy
+    kv = any(kind == "attn" for kind, _ in period_layout(plan.cfg))
+    kept = None if kv else [t.clone() for t in tree_leaves(cache)]
 
     def step_keeping(*a):
-        # both runs write each row's last slot of the same cache in place
-        # (the placed cache shares its storage): what each wrote is kept
+        # both runs write the same cache in place (the placed cache shares
+        # its storage): what each wrote is kept
         out = step(*a)
-        written.append([t[..., L - 1, :, :].clone() for t in tree_leaves(cache) if t.dim() >= 4])
+        written.append([t[..., L - 1, :, :].clone() for t in tree_leaves(cache) if t.dim() >= 4]
+                       if kv else [t.clone() for t in tree_leaves(cache)])
         return out
 
     def compare_decode(want, got):
@@ -2534,11 +2597,15 @@ def _dist_serve(mesh):
         return {"leaves_bit_equal": leaves, "tokens": w_nxt[:, 0].tolist()}
 
     def rewind(a):
-        # a step advances the stacked cache's lengths in place: every call
-        # starts from the last slot again
-        for t in tree_leaves(a[1]):
-            if t.dtype == torch.int32:
-                t.fill_(L - 1)
+        # a step advances the stacked cache's lengths (or the recurrent
+        # state) in place: every call starts from the same cache again
+        if kv:
+            for t in tree_leaves(a[1]):
+                if t.dtype == torch.int32:
+                    t.fill_(L - 1)
+        else:
+            for t, k in zip(tree_leaves(cache), kept):
+                t.copy_(k)
 
     with torch.inference_mode():
         rec = _dist_run(plan, lambda: (params, cache, tokens), compare_decode, fn=step_keeping,
@@ -2546,18 +2613,18 @@ def _dist_serve(mesh):
     rec.update(cell="decode_32k", cut=dcut, batch=db, cache_len=L, cache_bytes=cache_bytes)
     check(rec["flash_launches"] == [0, 0], f"decode launched flash {rec['flash_launches']}")
     recs.append(rec)
-    del cache, params, written
+    del cache, params, written, kept
     _free()
     return recs
 
 
-def _dryrun(*args):
-    """``python -m repro_torch.launch.dryrun`` in a child process (its fake
-    process group would be this process's default group), started now."""
+def _dryrun(*cmd):
+    """``python3 *cmd`` (a dry run) in a child process of its own session
+    (its fake process group would be this process's default group; the
+    session holds any process it starts), started now."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
-    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
-                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    return subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
 
 
 def _rows(proc, timeout: float, what: str):
@@ -2567,39 +2634,57 @@ def _rows(proc, timeout: float, what: str):
 
 
 def phase_distribution():
-    """The sharding rules on the card: qwen3-1.7b at full width, each cut
-    cell's plan run on a real 1x1 DeviceMesh (NCCL, a world of one) with
-    its arguments DTensors at the plan's placements, against the same
-    calls on plain tensors; then the dry run of the cells at their full
-    batch on the fake 16x16 and 2x16x16 meshes (in a child process)."""
+    """The sharding rules on the card: qwen3-1.7b at full width, then
+    xlstm-125m's three cells and seamless's prefill, each cut cell's plan
+    run on a real 1x1 DeviceMesh (NCCL, a world of one) with its arguments
+    DTensors at the plan's placements, against the same calls on plain
+    tensors; then, once those are timed, the dry runs of qwen3-1.7b and
+    xlstm-125m at their full batch on the fake 16x16 and 2x16x16 meshes
+    and the plan-only pass of every cell (child processes)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_debug_mesh
 
-    dry = _dryrun("--arch", DIST_ARCH, "--both")
-    plan_only = None
+    dry = dry_x = plan_only = None
     try:
         fa.LAUNCHES = 0
         mesh = make_debug_mesh()
         cells = [_dist_train(mesh)] + _dist_serve(mesh)
-        launches = fa.LAUNCHES
         for rec in cells:
             emit("distribution_cell", model=DIST_ARCH, mesh="1x1", **rec)
-        plan_only = _dryrun("--plan-only", "--both")
+        more = [(DIST_XLSTM, r) for r in [_dist_train(mesh, DIST_XLSTM, XLSTM_CUTS,
+                                                      seq=XLSTM_TRAIN_SEQ)]
+                + _dist_serve(mesh, DIST_XLSTM, XLSTM_CUTS, prefill_seq=XLSTM_PREFILL_SEQ)]
+        more += [(DIST_SEAMLESS, r) for r in _dist_serve(mesh, DIST_SEAMLESS, SEAMLESS_CUTS)]
+        for arch, rec in more:
+            emit("distribution_cell", model=arch, mesh="1x1", **rec)
+        launches = fa.LAUNCHES
+        # the dry runs load the host's CPU, which the cells' dispatch under
+        # the rules needs: they start once the timed cells are done
+        dryrun = ("-m", "repro_torch.launch.dryrun")
+        dry = _dryrun(*dryrun, "--arch", DIST_ARCH, "--both")
+        dry_x = _dryrun(str(ROOT / "scripts" / "dryrun_parallel.py"), "--arch", DIST_XLSTM,
+                        "--jobs", "4")
+        plan_only = _dryrun(*dryrun, "--plan-only", "--both")
         traced = _rows(dry, 600, f"--arch {DIST_ARCH} --both")
+        traced_x = _rows(dry_x, 900, f"--arch {DIST_XLSTM} --both, in parallel")
         planned = _rows(plan_only, 300, "--plan-only --both")
     finally:
-        for proc in (dry, plan_only):
-            if proc is not None and proc.poll() is None:
-                proc.kill()
+        for proc in (dry, dry_x, plan_only):
+            if proc is not None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)  # with any cell it started
                 proc.wait()
         if dist.is_initialized():
             dist.destroy_process_group()
     status = [(r["cell"], r["mesh"], r["status"]) for r in traced]
     check(sum(s == "OK" for *_, s in status) == 6 and sum(s == "SKIP" for *_, s in status) == 2
           and len(status) == 8, f"dry run of {DIST_ARCH}: {status}")
-    for r in traced:
+    status_x = [(r["cell"], r["mesh"], r["status"]) for r in traced_x]
+    check(sum(s == "OK" for *_, s in status_x) == 8 and len(status_x) == 8,
+          f"dry run of {DIST_XLSTM}: {status_x}")
+    for r in traced + traced_x:
         if r["status"] == "OK":
             check(r["coll_bytes_per_dev"] > 0 and r["peak_bytes"] > 0
                   and r["t_compute_ms"] > 0 and r["t_memory_ms"] > 0
@@ -2612,15 +2697,19 @@ def phase_distribution():
         emit("distribution_plan", arch=r["arch"], cell=r["cell"], mesh=r["mesh"],
              arg_bytes=r["arg_bytes"], t_compute_ms=r["t_compute_ms"],
              t_memory_ms=r["t_memory_ms"], bottleneck=r["bottleneck"])
+    every = [(DIST_ARCH, r) for r in cells] + more
     emit("distribution", model=DIST_ARCH, mesh="1x1 (NCCL, world of one)",
          cuts={c: cut for c, (_, cut) in DIST_CUTS.items()},
-         ms={r["cell"]: {"plain": r["plain_ms"], "rules": r["rules_ms"],
-                         "plain_first": r["plain_first_ms"], "rules_first": r["rules_first_ms"]}
-             for r in cells},
+         more_cuts={DIST_XLSTM: {c: cut for c, (_, cut) in XLSTM_CUTS.items()},
+                    DIST_SEAMLESS: {c: cut for c, (_, cut) in SEAMLESS_CUTS.items()}},
+         ms={f"{a}/{r['cell']}": {"plain": r["plain_ms"], "rules": r["rules_ms"],
+                                  "plain_first": r["plain_first_ms"],
+                                  "rules_first": r["rules_first_ms"]} for a, r in every},
          timed=f"median of {DIST_REPS} calls after the first",
-         peak_bytes={r["cell"]: {"plain": r["plain_peak_bytes"], "rules": r["rules_peak_bytes"]}
-                     for r in cells},
-         flash_launches=launches, dryrun_cells=status, planned_cells=len(ok_plans))
+         peak_bytes={f"{a}/{r['cell']}": {"plain": r["plain_peak_bytes"],
+                                          "rules": r["rules_peak_bytes"]} for a, r in every},
+         flash_launches=launches, dryrun_cells=status, dryrun_cells_xlstm=status_x,
+         planned_cells=len(ok_plans))
     return launches
 
 

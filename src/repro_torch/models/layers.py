@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.schema import ParamSpec
-from repro_torch.sharding import lac, lac_split
+from repro_torch.sharding import current_rules, lac, lac_split, per_shard, split_first, use_rules
 
 FLASH_THRESHOLD = 2048  # einsum attention up to here; chunked twin or kernel above
 FLASH_BLOCK_KV = 512
@@ -37,9 +37,18 @@ NEG_INF = -1e30
 def remat(fn, *args):
     """``fn(*args)``; while autograd records, under ``torch.utils.checkpoint``
     (non-reentrant), so that the backward recomputes what ``fn`` computed
-    inside instead of keeping it: the counterpart of ``jax.checkpoint``."""
+    inside instead of keeping it: the counterpart of ``jax.checkpoint``.
+    The recomputation runs under the sharding rules of the forward: on a
+    CUDA device the backward runs on autograd's own thread, which does not
+    see the caller's context."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        rules = current_rules()
+
+        def run(*a):
+            with use_rules(rules):
+                return fn(*a)
+
+        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
 
 
@@ -133,10 +142,30 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B,S,D) · w (D, KV, …) → (B,S,KV, …), as one flat product
     (B,S,KV·…) placed with KV as its logical axis before it is unflattened:
     over DTensors a product may otherwise shard the flat dim in a way that
-    does not split back into (KV, …)."""
+    does not split back into (KV, …). A DTensor weight whose q groups are
+    split and KV heads not is flattened groups first (``split_first``)."""
+    order = split_first(w, (1, 2)) if w.dim() == 4 else None
+    if order == (2, 1):
+        w = w.permute(0, 2, 1, 3)
     out = x @ w.reshape(w.shape[0], -1)
-    out = lac_split(out, w.shape[1], "batch", "seq", "kv_heads")
-    return out.reshape(tuple(x.shape[:2]) + tuple(w.shape[1:]))
+    out = lac_split(out, w.shape[1], "batch", "seq",
+                    "q_per_kv" if order == (2, 1) else "kv_heads")
+    out = out.reshape(tuple(x.shape[:2]) + tuple(w.shape[1:]))
+    return out.permute(0, 1, 3, 2, 4) if order == (2, 1) else out
+
+
+def _heads_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """Σ over (KV, G, D) of out (B,S,KV,G,D) · wo (KV,G,D,M) → (B,S,M). On
+    DTensors that split a head dim, one flat product with the split dim
+    major: ``einsum`` flattens (D, KV, G), which makes the split a strided
+    shard (``split_first``). Elsewhere the ``einsum`` itself, whose sums a
+    flat product does not repeat bit for bit."""
+    order = split_first(out, (2, 3))
+    if order is None:
+        return torch.einsum("bskgd,kgdm->bsm", out, wo)
+    B, S = out.shape[:2]
+    o = out.permute(0, 1, *order, 4).reshape(B, S, -1)
+    return o @ wo.permute(*(d - 2 for d in order), 2, 3).reshape(-1, wo.shape[-1])
 
 
 def _softcap(logits, cap):
@@ -225,29 +254,21 @@ def _flash_attention_qchunked(qg, k, v, *, causal, softcap, block_q=FLASH_BLOCK_
         for q0 in range(0, Sq, block_q)], dim=1)
 
 
+# logical axes of attention's q (B,S,KV,G,D) and k, v (B,S,KV,D)
+_Q_AXES, _KV_AXES = ("batch", None, "kv_heads", "q_per_kv", None), ("batch", None, "kv_heads", None)
+
+
 def _per_shard(fn, q, k, v, **kw):
-    """``fn(q, k, v, **kw)``, an attention without a cache. On DTensors
-    placed by the q/k/v constraints (sharded over batch, kv heads or q
-    groups, never over a sequence or head_dim) attention is independent per
-    shard, so it runs on each device's shards (``local_map``) with its
-    output at q's placements, forward and backward without a collective;
+    """``fn(q, k, v, **kw)``, an attention without a cache. On DTensors placed
+    by the q/k/v constraints (sharded over batch, kv heads or q groups,
+    never over a sequence or head_dim) attention is independent per shard,
+    so it runs on each device's shards (``per_shard``), with its output at
+    q's placements, forward and backward without a collective; K/V
+    replicated where q's groups are split get a partial-sum gradient.
     DTensor's own propagation would merge sharded dims inside its einsums
     and gather them again."""
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(q, DTensor):
-        return fn(q, k, v, **kw)
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    # K/V replicated where q's groups are split: each shard's K/V grad sums
-    # its own groups' share, a partial sum over that mesh dim
-    kv_grad = [tuple(Partial() if isinstance(qp, Shard) and p == Replicate() else p
-                     for qp, p in zip(q.placements, t.placements)) for t in (k, v)]
-    return local_map(lambda a, b, c: fn(a, b, c, **kw), out_placements=list(q.placements),
-                     in_placements=(q.placements, k.placements, v.placements),
-                     in_grad_placements=(q.placements, *kv_grad),
-                     device_mesh=q.device_mesh)(q, k, v)
+    return per_shard(lambda a, b, c: fn(a, b, c, **kw), (q, k, v),
+                     (_Q_AXES, _KV_AXES, _KV_AXES), (_Q_AXES,))
 
 
 def _write_slot(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
@@ -300,9 +321,13 @@ def apply_attention(
         cos, sin = rope_freqs(cfg, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    q = lac(q, "batch", None, "kv_heads", "q_per_kv", None)
-    k = lac(k, "batch", None, "kv_heads", None)
-    v = lac(v, "batch", None, "kv_heads", None)
+    # a decode cache holds its heads whole (its sequence takes the model
+    # axis): a step's q, k and v, a few bytes a row, are placed to match,
+    # where split heads would flatten with the batch into a strided shard
+    heads = (None, None) if mode == "decode" else ("kv_heads", "q_per_kv")
+    q = lac(q, "batch", None, *heads, None)
+    k = lac(k, "batch", None, heads[0], None)
+    v = lac(v, "batch", None, heads[0], None)
 
     new_cache = None
     scan_flops = 0.0
@@ -347,7 +372,7 @@ def apply_attention(
             out = _per_shard(_einsum_attention, q, k, v, causal=causal,
                              softcap=cfg.attn_logit_softcap)
     out = lac(out, "batch", None, "kv_heads", "q_per_kv", None)
-    y = torch.einsum("bskgd,kgdm->bsm", out, p["wo"].to(x.dtype))
+    y = _heads_out(out, p["wo"].to(x.dtype))
     return y, new_cache, scan_flops
 
 
@@ -359,18 +384,22 @@ def apply_cross_attention(p, cfg, x, enc_out, *, cache=None, mode="train"):
     decode: reuses the cached K/V and passes the cache through; nothing
     writes into it.
     """
-    q = _project(x, p["wq"].to(x.dtype))
+    q = lac(_project(x, p["wq"].to(x.dtype)), "batch", None, "kv_heads", "q_per_kv", None)
     if mode == "decode" and cache is not None:
         k, v = cache["k"], cache["v"]
         new_cache = cache
     else:
         if enc_out is None:
             raise ValueError("cross-attention needs enc_out outside decode")
+        # the encoder's output whole along its sequence, as a sublayer input
+        enc_out = lac(enc_out, "batch", "seq", None)
         k = _project(enc_out, p["wk"].to(x.dtype))
         v = _project(enc_out, p["wv"].to(x.dtype))
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
-    out = _einsum_attention(q, k, v, causal=False, softcap=0.0)
-    y = torch.einsum("bskgd,kgdm->bsm", out, p["wo"].to(x.dtype))
+    k = lac(k, "batch", None, "kv_heads", None)
+    v = lac(v, "batch", None, "kv_heads", None)
+    out = _per_shard(_einsum_attention, q, k, v, causal=False, softcap=0.0)
+    y = _heads_out(out, p["wo"].to(x.dtype))
     return y, new_cache
 
 

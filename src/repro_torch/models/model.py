@@ -32,7 +32,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import apply_norm, norm_spec, remat
 from repro_torch.models.schema import (ParamSpec, abstract_tree, axes_tree, init_tree,
                                        param_count)
-from repro_torch.sharding import lac
+from repro_torch.sharding import lac, lac_grad
 from repro_torch.tree import tree_map
 
 
@@ -102,6 +102,9 @@ class Model:
             logits = x @ params["embed"].to(cfg.compute_dtype).T
         else:
             logits = x @ params["lm_head"].to(cfg.compute_dtype)
+        # the product's gradient returns as the product made it, whole along
+        # the sequence, not at the logits' placements (``lac_grad``)
+        logits = lac_grad(logits, "batch", "seq", "logit_vocab")
         return lac(logits, "batch", "act_seq", "logit_vocab")
 
     def encode(self, params, frames):
@@ -268,7 +271,10 @@ def chunked_lm_loss(model: Model, params: dict, x: torch.Tensor, labels: torch.T
         chunk = S  # fallback: single chunk
 
     def one(xx, ll, mm):
-        logits = model._head(params, xx)  # (B,chunk,V)
+        # the chunk whole along its sequence into the head's product, as a
+        # sublayer's input: a split sequence would flatten into a strided
+        # shard in the product's backward
+        logits = model._head(params, lac(xx, "batch", "seq", None))  # (B,chunk,V)
         lse = _logsumexp(logits.float())
         ce = ((lse - _label_logits(logits, ll)) * mm).sum()
         zz = ((lse ** 2) * mm).sum()

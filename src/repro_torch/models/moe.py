@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import gelu
 from repro_torch.models.schema import ParamSpec
-from repro_torch.sharding import lac
+from repro_torch.sharding import lac, lac_grad, per_shard
 
 
 def moe_spec(cfg) -> dict:
@@ -50,6 +50,30 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+_BSD = ("batch", None, None)
+
+
+def _rows_of(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a (B,N,D), idx (B,M) → (B,M,D): row idx[b, j] of a[b], and a zero
+    row where idx[b, j] == N, as one flat gather."""
+    B, N, D = a.shape
+    ap = torch.cat([a, a.new_zeros((B, 1, D))], 1).reshape(B * (N + 1), D)
+    rows = (idx + (N + 1) * torch.arange(B, device=a.device)[:, None]).reshape(-1)
+    return ap.index_select(0, rows).reshape(B, idx.shape[1], D)
+
+
+_BECD = ("batch", "experts", None, None)
+
+
+def _expert_in(xe, wi, wg=None):
+    """xe (B,E,C,D), wi and wg (E,D,F) → the activated hidden (B,E,C,F),
+    contiguous: the output product views it with its rows flattened, which
+    over a DTensor einsum's permuted result needs the layout made whole."""
+    h = torch.einsum("becd,edf->becf", xe, wi)
+    h = F.silu(torch.einsum("becd,edf->becf", xe, wg)) * h if wg is not None else gelu(h)
+    return h.contiguous()
+
+
 def apply_moe(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     """x (B,S,D) → (y (B,S,D), {"moe_aux", "moe_z"})."""
     B, S, D = x.shape
@@ -58,7 +82,10 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     C = _capacity(S, cfg)
     dev = x.device
 
-    logits = (x @ p["router"].to(x.dtype)).float()
+    # the router product's gradient whole along the sequence, as its input
+    # is: DTensor would split it there, which the product's backward must
+    # flatten with the batch into a strided shard
+    logits = lac_grad(x @ p["router"].to(x.dtype), "batch", "seq", None).float()
     probs = torch.softmax(logits, -1)
     gate, eidx = top_k(probs, K)  # (B,S,K)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
@@ -84,28 +111,35 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     dest = torch.where(keep, slot, E * C + t)
     slot2tok = torch.full((B, E * C + T), S, dtype=torch.long, device=dev)
     slot2tok = slot2tok.scatter(1, dest, (t // K).expand(B, T))[:, : E * C]
-    xp = torch.cat([x, x.new_zeros((B, 1, D))], 1).reshape(B * (S + 1), D)  # pad row S
-    rows = (slot2tok + (S + 1) * torch.arange(B, device=dev)[:, None]).reshape(-1)
-    xe = xp.index_select(0, rows).reshape(B, E, C, D)
-    xe = lac(xe, "batch", "experts", None, None)
+    # the gathers are each batch row's own: on DTensors they run on each
+    # device's rows (``per_shard``), where DTensor would flatten the batch
+    # with a split dim, or index a split row dim with global row numbers
+    xe = per_shard(lambda a, i: _rows_of(a, i).reshape(i.shape[0], E, C, D), (x, slot2tok),
+                   (_BSD, ("batch", None)), (("batch", None, None, None),))
+    # its gradient comes back with the experts whole, as the gather made
+    # them (``lac_grad``)
+    xe = lac(lac_grad(xe, "batch", None, None, None), *_BECD)
 
-    # ---- expert FFN
-    h = torch.einsum("becd,edf->becf", xe, p["wi"].to(x.dtype))
-    if "wg" in p:
-        g = torch.einsum("becd,edf->becf", xe, p["wg"].to(x.dtype))
-        h = F.silu(g) * h
+    # ---- expert FFN. While autograd records, the input products and the
+    # activation, which sum over no split dim, run on each device's shards
+    # (``per_shard``), the weights whole along d as FSDP gathers them: the
+    # backward of DTensor's einsum views permuted shards as if they were
+    # contiguous on torch 2.11 (grok-1 train_4k on 2x16x16). A serving step
+    # keeps DTensor's plan, which sums each shard's part of a split d and
+    # reduces the hidden: at decode's few tokens, less than the weights.
+    ws = [p[k].to(x.dtype) for k in ("wi", "wg") if k in p]
+    if xe.requires_grad:
+        h = per_shard(_expert_in, (xe, *ws),
+                      (_BECD,) + (("experts", None, "expert_mlp"),) * len(ws),
+                      (("batch", "experts", None, "expert_mlp"),))
     else:
-        h = gelu(h)
-    # the einsum above leaves h a DTensor whose global strides are permuted
-    # while its shards are contiguous; the next einsum's views need them to agree
-    h = h.contiguous()
+        h = _expert_in(xe, *ws)
     ye = torch.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))
     ye = lac(ye, "batch", "experts", None, None)
 
     # ---- combine: gather each (token,k) result from its slot, weight, sum
-    yef = torch.cat([ye.reshape(B, E * C, D), ye.new_zeros((B, 1, D))], 1)
-    rows = (slot + (E * C + 1) * torch.arange(B, device=dev)[:, None]).reshape(-1)
-    ytk = yef.reshape(B * (E * C + 1), D).index_select(0, rows).reshape(B, T, D)
+    ytk = per_shard(lambda a, i: _rows_of(a.reshape(a.shape[0], E * C, D), i),
+                    (ye, slot), (("batch", None, None, None), ("batch", None)), (_BSD,))
     w = (gate.reshape(B, T) * keep).to(x.dtype)
     y = (ytk * w[..., None]).reshape(B, S, K, D).sum(2)
     y = lac(y, "batch", "seq", None)

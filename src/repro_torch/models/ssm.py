@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.schema import ParamSpec
-from repro_torch.sharding import lac
+from repro_torch.sharding import lac, lac_grad, per_shard
 
 
 def mamba_dims(cfg):
@@ -143,6 +143,12 @@ def ssd_scan_flops(B, S, H, P, N, chunk) -> float:
     return 2.0 * B * nc * H * N * P
 
 
+# logical axes of the scan's tensors: x (B,S,H,P), dt (B,S,H), B/C (B,S,N),
+# the state (B,H,N,P)
+_BSHP, _BSH = ("batch", None, "inner_heads", None), ("batch", None, "inner_heads")
+_BSN, _STATE = ("batch", None, None), ("batch", "inner_heads", None, None)
+
+
 def apply_mamba(p: dict, cfg, x: torch.Tensor, *, cache: Optional[dict] = None,
                 mode: str = "train") -> Tuple[torch.Tensor, Optional[dict]]:
     """x (B,S,D). cache = {"conv": (B,W-1,Ch), "ssm": (B,H,N,P)} for decode;
@@ -152,11 +158,10 @@ def apply_mamba(p: dict, cfg, x: torch.Tensor, *, cache: Optional[dict] = None,
     B, S, D = x.shape
     dt_x = x.to(cfg.compute_dtype)
 
-    z = dt_x @ p["wz"].to(dt_x.dtype)
-    xin = dt_x @ p["wx"].to(dt_x.dtype)
-    Bm = dt_x @ p["wB"].to(dt_x.dtype)
-    Cm = dt_x @ p["wC"].to(dt_x.dtype)
-    dt_raw = dt_x @ p["wdt"].to(dt_x.dtype)
+    # each product's gradient returns whole along the sequence, as the
+    # input is (``lac_grad``): DTensor would otherwise split it there
+    z, xin, Bm, Cm, dt_raw = (lac_grad(dt_x @ p[w].to(dt_x.dtype), "batch", "seq", None)
+                              for w in ("wz", "wx", "wB", "wC", "wdt"))
 
     xBC = torch.cat([xin, Bm, Cm], -1)
     conv_state = cache.get("conv") if cache else None
@@ -182,8 +187,12 @@ def apply_mamba(p: dict, cfg, x: torch.Tensor, *, cache: Optional[dict] = None,
         y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)[:, None]  # (B,1,H,P)
         new_cache = {"conv": new_conv, "ssm": h}
     else:
-        h0 = cache["ssm"].float() if cache else None
-        y, h_last = ssd_chunked(xh, dt, a_log, Bm, Cm, mc.chunk, h0)
+        # the scan is independent per batch row and head: on DTensors it
+        # runs on each device's shards, one dispatch for the whole scan
+        h0 = (cache["ssm"].float(),) if cache else ()
+        y, h_last = per_shard(
+            lambda *a: ssd_chunked(*a[:5], mc.chunk, *a[5:]), (xh, dt, a_log, Bm, Cm, *h0),
+            (_BSHP, _BSH, _BSH, _BSN, _BSN) + (_STATE,) * len(h0), (_BSHP, _STATE))
         new_cache = {"conv": new_conv, "ssm": h_last} if mode == "prefill" else None
     y = y + xh.float() * p["Dskip"].float()[None, None, :, None]
     y = y.reshape(B, S, di).to(dt_x.dtype)

@@ -36,7 +36,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.models.accounting import add_scan_flops
 from repro_torch.models.schema import ParamSpec
-from repro_torch.sharding import is_axes, lac
+from repro_torch.sharding import is_axes, lac, lac_grad
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -207,6 +207,16 @@ def _sublayer_input(p_norm: dict, x: torch.Tensor) -> torch.Tensor:
     return lac(L.apply_norm(p_norm, x), "batch", "seq", None)
 
 
+def _residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """x + a sublayer's output, at the residual stream's placements: a
+    sublayer whose heads or features are split leaves a partial sum, which
+    is reduced here, where the next norm would otherwise pick a layout of
+    its own for it (such as a sequence split, which a later product must
+    flatten into a strided shard). The output's gradient returns whole
+    along the sequence, as the sublayer's input was (``lac_grad``)."""
+    return lac(x + lac_grad(out, "batch", "seq", None), "batch", "act_seq", "residual")
+
+
 def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
                 cache: Optional[dict], mode: str, enc_out: Optional[torch.Tensor] = None,
                 causal: bool = True, max_len: Optional[int] = None):
@@ -220,14 +230,14 @@ def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
         )
         if sf:
             add_scan_flops(sf)
-        x = x + out
+        x = _residual(x, out)
         new_cache = {"kv": kvc} if kvc is not None else None
         if "cross" in p:  # decoder cross-attention sublayer
             cout, cc = L.apply_cross_attention(
                 p["cross"], cfg, _sublayer_input(p["lnx"], x), enc_out,
                 cache=cache["cross"] if cache else None, mode=mode,
             )
-            x = x + cout
+            x = _residual(x, cout)
             if new_cache is not None and cc is not None:
                 new_cache["cross"] = cc
     else:
@@ -236,13 +246,12 @@ def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
         if apply is None:
             raise ValueError(kind)
         out, new_cache = apply(p[kind], cfg, h, cache=cache, mode=mode)
-        x = x + out
+        x = _residual(x, out)
     if "moe" in p:
         y, aux = M.apply_moe(p["moe"], cfg, _sublayer_input(p["ln2"], x))
-        x = x + y
+        x = _residual(x, y)
     elif "mlp" in p:
-        x = x + L.apply_mlp(p["mlp"], cfg, _sublayer_input(p["ln2"], x))
-    x = lac(x, "batch", "act_seq", "residual")
+        x = _residual(x, L.apply_mlp(p["mlp"], cfg, _sublayer_input(p["ln2"], x)))
     return x, new_cache, aux
 
 

@@ -24,7 +24,7 @@ from repro_torch.models.accounting import add_scan_flops
 from repro_torch.models.layers import NEG_INF, gelu
 from repro_torch.models.schema import ParamSpec
 from repro_torch.models.ssm import _causal_conv
-from repro_torch.sharding import lac, lac_split
+from repro_torch.sharding import lac, lac_grad, lac_split, per_shard
 
 MLSTM_CHUNK = 64
 
@@ -83,14 +83,32 @@ def _mlstm_chunk_step(q, k, v, logi, logf, state):
     return h, (C1, n1, m1)
 
 
+# logical axes of the loops' tensors: (B,S,H[,P]) activations, the state
+_BSHP, _BSH = ("batch", None, "heads", None), ("batch", None, "heads")
+_MLSTM_STATE = (("batch", "heads", None, None), ("batch", "heads", None), ("batch", "heads"))
+
+
 def mlstm_cell(q, k, v, logi, logf, state=None, chunk: int = MLSTM_CHUNK):
     """q,k,v (B,S,H,P); logi/logf (B,S,H): the chunkwise form, a loop over
     chunks of min(chunk, S) (S must be a multiple). Returns (h (B,S,H,P),
-    final_state) in f32."""
+    final_state) in f32. On DTensors the loop runs on each device's shards
+    of batch and heads (``per_shard``)."""
     B, Ssz, H, P = q.shape
     L = min(chunk, Ssz)
     if Ssz % L:
         raise ValueError(f"sequence {Ssz} is not a multiple of the mLSTM chunk {L}")
+    add_scan_flops(2.0 * B * H * Ssz * L * (3 * P + 2))  # QK^T + WV + state einsums
+    st = tuple(state) if state is not None else ()
+    h, *st = per_shard(lambda *a: _mlstm_chunks(L, *a), (q, k, v, logi, logf, *st),
+                       (_BSHP,) * 3 + (_BSH,) * 2 + _MLSTM_STATE[:len(st)],
+                       (_BSHP,) + _MLSTM_STATE)
+    return h, tuple(st)
+
+
+def _mlstm_chunks(L, q, k, v, logi, logf, *state):
+    """``mlstm_cell``'s loop over chunks of L, on plain tensors; returns
+    (h, C, n, m)."""
+    B, Ssz, H, P = q.shape
     nc = Ssz // L
 
     def chunks(t):  # (B,S,H[,P]) -> (nc,B,H,L[,P]) in f32
@@ -99,7 +117,7 @@ def mlstm_cell(q, k, v, logi, logf, state=None, chunk: int = MLSTM_CHUNK):
 
     qc, kc, vc = chunks(q), chunks(k) / math.sqrt(P), chunks(v)
     lic, lfc = chunks(logi), chunks(logf)
-    if state is None:
+    if not state:
         state = (
             q.new_zeros((B, H, P, P), dtype=torch.float32),
             q.new_zeros((B, H, P), dtype=torch.float32),
@@ -109,9 +127,8 @@ def mlstm_cell(q, k, v, logi, logf, state=None, chunk: int = MLSTM_CHUNK):
     for c in range(nc):
         h, state = _mlstm_chunk_step(qc[c], kc[c], vc[c], lic[c], lfc[c], state)
         hs.append(h)
-    add_scan_flops(2.0 * B * H * Ssz * L * (3 * P + 2))  # QK^T + WV + state einsums
     h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(B, Ssz, H, P)
-    return h, state
+    return (h, *state)
 
 
 def mlstm_decode_step(q, k, v, logi, logf, state):
@@ -145,7 +162,9 @@ def apply_mlstm(p, cfg, x, *, cache=None, mode="train"):
     c = F.silu(c)
     q, k, v = (lac_split(a @ p[w].to(x.dtype), H, "batch", "seq", "heads").reshape(B, S, H, P)
                for a, w in ((c, "wq"), (c, "wk"), (u, "wv")))
-    gates = (c @ p["wif"].to(x.dtype)).float() + p["if_bias"].float()
+    # the gates' gradient returns whole along the sequence (``lac_grad``)
+    gates = lac_grad(c @ p["wif"].to(x.dtype), "batch", "seq", None).float() + p[
+        "if_bias"].float()
     logi, logf_raw = gates.chunk(2, -1)  # (B,S,H)
     logf = F.logsigmoid(logf_raw)
 
@@ -201,8 +220,9 @@ def slstm_spec(cfg) -> dict:
 
 
 def _slstm_step(p_r, hcnm, wx_t):
-    """wx_t (B,4d) precomputed input pre-acts; the recurrent part is
-    block-diagonal. hcnm: (h, c, n, m), each (B,H,dh)."""
+    """wx_t (B,4,H,dh) precomputed input pre-acts (or the same flat,
+    (B,4d)); the recurrent part is block-diagonal. hcnm: (h, c, n, m),
+    each (B,H,dh)."""
     h, c, n, m = hcnm
     B, H, dh = h.shape
     rec = torch.einsum("bhd,ghde->bghe", h, p_r)  # (B,4,H,dh)
@@ -215,6 +235,24 @@ def _slstm_step(p_r, hcnm, wx_t):
     n1 = fp * n + ip
     h1 = torch.sigmoid(ot) * c1 / torch.clamp_min(n1, 1e-6)
     return (h1, c1, n1, m1)
+
+
+_SLSTM_STATE = (("batch", "heads", None),) * 4
+
+
+def _slstm_loop(pr, wx, *st):
+    """The sLSTM recurrence over wx (B,S,4,H,dh) from the state (h, c, n,
+    m), each (B,H,dh) (zero, with m at -inf, if not given), on plain
+    tensors; returns (hs (B,S,H,dh), h, c, n, m)."""
+    if not st:
+        B, _, _, H, dh = wx.shape
+        z = torch.zeros((B, H, dh), dtype=torch.float32, device=wx.device)
+        st = (z, z, z, torch.full((B, H, dh), NEG_INF, dtype=torch.float32, device=wx.device))
+    outs = []
+    for t in range(wx.shape[1]):
+        st = _slstm_step(pr, st, wx[:, t])
+        outs.append(st[0])
+    return (torch.stack(outs, 1), *st)
 
 
 def apply_slstm(p, cfg, x, *, cache=None, mode="train"):
@@ -230,29 +268,16 @@ def apply_slstm(p, cfg, x, *, cache=None, mode="train"):
     wx = (cx @ p["wx"].to(x.dtype)).float() + p["bias"].float()  # (B,S,4d)
     # each step splits the 4d pre-activations into (4, H, dh): a DTensor
     # shard of the flat dim may not split so, so they are gathered once here
-    wx = lac(wx, "batch", "seq", None)
-
-    if cache and "slstm" in cache:
-        st = cache["slstm"]
-    else:
-        z = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
-        st = (z, z, z, torch.full((B, H, dh), NEG_INF, dtype=torch.float32, device=x.device))
-    pr = p["r"].float()
-
-    if mode == "decode":
-        if S != 1:
-            raise ValueError("decode takes one token per sequence")
-        st = _slstm_step(pr, st, wx[:, 0])
-        hs = st[0][:, None]  # (B,1,H,dh)
-        new_cache = {"conv": new_conv, "slstm": st}
-    else:
-        outs = []
-        for t in range(S):
-            st = _slstm_step(pr, st, wx[:, t])
-            outs.append(st[0])
+    wx = lac(wx, "batch", "seq", None).reshape(B, S, 4, H, dh)
+    if mode == "decode" and S != 1:
+        raise ValueError("decode takes one token per sequence")
+    st = tuple(cache["slstm"]) if cache and "slstm" in cache else ()
+    hs, *st = per_shard(_slstm_loop, (p["r"].float(), wx, *st),
+                        ((None, "heads", None, None), ("batch", None, None, "heads", None))
+                        + _SLSTM_STATE[:len(st)], (_BSHP,) + _SLSTM_STATE)
+    if mode != "decode":
         add_scan_flops(2.0 * B * S * 4 * H * dh * dh)
-        hs = torch.stack(outs, 1)  # (B,S,H,dh)
-        new_cache = {"conv": new_conv, "slstm": st} if mode == "prefill" else None
+    new_cache = {"conv": new_conv, "slstm": tuple(st)} if mode != "train" else None
 
     hf = hs.float()
     ms = hf.square().mean(-1, keepdim=True)

@@ -15,7 +15,9 @@ times the chips) are reported beside them as the cross-check that XLA's
 Collective bytes come from the trace (``TraceRecorder``): every
 ``_c10d_functional`` collective that the DTensor program issues, priced
 from its per-device shape and group size by the reference's ring model.
-Python loops unroll, so no op needs a trip-count multiplier.
+Python loops unroll, so no op needs a trip-count multiplier. The xLSTM
+and SSD loops run inside ``local_map`` on each device's shards, so they
+unroll there, as local ops that the recorder sees one by one.
 """
 from __future__ import annotations
 
@@ -287,6 +289,26 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+class _NotMeta(Exception):
+    pass
+
+
+def _meta_key(x, seen: list):
+    """A hashable signature of an op's arguments (each tensor's shape,
+    stride, dtype and offset); ``seen`` gets each tensor. Raises
+    ``_NotMeta`` for a tensor that is not on ``meta``."""
+    if isinstance(x, torch.Tensor):
+        if not x.is_meta:
+            raise _NotMeta
+        seen.append(x)
+        return (x.shape, x.stride(), x.dtype, x.storage_offset())
+    if isinstance(x, (tuple, list)):
+        return (type(x), *[_meta_key(e, seen) for e in x])
+    if isinstance(x, dict):
+        return tuple((k, _meta_key(v, seen)) for k, v in x.items())
+    return x
+
+
 class TraceRecorder(TorchDispatchMode):
     """One pass over the per-device ops of a DTensor program (DTensor ops
     pass through with ``NotImplemented``, so that DTensor desugars them
@@ -299,19 +321,31 @@ class TraceRecorder(TorchDispatchMode):
         ``peak_bytes`` is the most at any time.
     Ops on FakeTensors are DTensor's own shape inference over global
     shapes, not device work, and count nowhere.
+
+    On ``meta`` tensors an op's result depends on nothing but its
+    arguments' shapes, strides and dtypes, and many meta kernels are
+    Python; a loop repeats the same ops at the same shapes. So a pure op
+    (no argument or result that aliases or is written, by its schema and
+    by its first result) is run once per signature, and later calls
+    allocate a result of the remembered layout.
     """
 
     def __init__(self):
         super().__init__()
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
         from torch.utils.flop_counter import flop_registry
 
         self._flop_registry = flop_registry
+        self._fake, self._dtensor = FakeTensor, DTensor
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
         self.flops = 0.0
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live: Dict[int, int] = {}
+        self._meta_layouts: Dict[tuple, tuple] = {}
+        self._pure: Dict[object, bool] = {}
 
     def track(self, tensors) -> None:
         for t in tensors:
@@ -332,15 +366,15 @@ class TraceRecorder(TorchDispatchMode):
         self.live_bytes -= self._live.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch._subclasses.fake_tensor import FakeTensor
-        from torch.distributed.tensor import DTensor
-
+        FakeTensor, DTensor = self._fake, self._dtensor
         kwargs = kwargs or {}
         if any(t is DTensor for t in types):
             return NotImplemented
-        out = func(*args, **kwargs)
-        if any(t is FakeTensor for t in types) or isinstance(out, FakeTensor):
-            return out  # DTensor's shape inference on global fake shadows
+        if any(t is FakeTensor for t in types):
+            return func(*args, **kwargs)  # DTensor's shape inference on global fake shadows
+        out = self._run(func, args, kwargs)
+        if isinstance(out, FakeTensor):
+            return out
         packet = func._overloadpacket
         if packet in self._flop_registry:
             self.flops += self._flop_registry[packet](*args, **kwargs, out_val=out)
@@ -350,6 +384,35 @@ class TraceRecorder(TorchDispatchMode):
             if isinstance(o, torch.Tensor):
                 self._track(o)
         return out
+
+    def _run(self, func, args, kwargs):
+        pure = self._pure.get(func)
+        if pure is None:
+            sch = func._schema
+            pure = self._pure[func] = (
+                getattr(func, "namespace", None) == "aten"
+                and not any(a.alias_info for a in sch.arguments) and bool(sch.returns)
+                and all(r.alias_info is None and str(r.type) == "Tensor" for r in sch.returns))
+        if not pure:
+            return func(*args, **kwargs)
+        seen = []
+        try:
+            key = (func, _meta_key((args, kwargs), seen))
+            layouts = self._meta_layouts.get(key) if seen else None
+        except (_NotMeta, TypeError):  # a tensor off meta, or an unhashable argument
+            return func(*args, **kwargs)
+        if layouts is None:
+            out = func(*args, **kwargs)
+            outs = out if isinstance(out, tuple) else (out,)
+            ins = {t.untyped_storage()._cdata for t in seen}
+            if any(o.untyped_storage()._cdata in ins for o in outs):
+                self._pure[func] = False  # a view its schema does not declare
+            elif seen:
+                self._meta_layouts[key] = tuple((o.shape, o.stride(), o.dtype) for o in outs)
+            return out
+        outs = tuple(torch.empty_strided(sh, st, dtype=dt, device="meta")
+                     for sh, st, dt in layouts)
+        return outs if len(func._schema.returns) > 1 else outs[0]
 
     def _record(self, name: str, args, out) -> None:
         outs = out if isinstance(out, (list, tuple)) else [out]

@@ -188,21 +188,31 @@ def tree_unflatten_axes(axes_tree, leaves):
 def use_rules(rules: Optional[ShardingRules]):
     """Install ``rules`` for the block. On a DeviceMesh, the plain tensors
     that the model makes itself (positions, masks, zeros) join DTensor ops
-    as replicated (``implicit_replication``): every rank makes the same;
-    and the flash op's DTensor sharding strategy is registered, where
-    DTensors first reach the model."""
+    as replicated (DTensor's implicit replication): every rank makes the same;
+    and the flash op's DTensor sharding strategy, and those of the aten ops
+    that DTensor has none for (``_register_strategies``), are registered,
+    where DTensors first reach the model."""
     tok = _ACTIVE.set(rules)
     try:
         if rules is None or isinstance(rules.mesh, AbstractMesh):
             yield
         else:
-            from torch.distributed.tensor.experimental import implicit_replication
+            from torch.distributed.tensor import DTensor
 
             from repro_torch.kernels.flash_attention import register_sharding_strategy
 
             register_sharding_strategy()
-            with implicit_replication():
+            _register_strategies()
+            # DTensor's ``implicit_replication()`` turns the switch off as
+            # it leaves; a nested block (a recomputation inside the
+            # backward of an outer one) restores what it found instead
+            disp = DTensor._op_dispatcher
+            was = disp._allow_implicit_replication
+            disp._allow_implicit_replication = True
+            try:
                 yield
+            finally:
+                disp._allow_implicit_replication = was
     finally:
         _ACTIVE.reset(tok)
 
@@ -230,6 +240,41 @@ def lac_split(x: torch.Tensor, lead: int, *logical_axes: Optional[str]) -> torch
     return _lac(x, logical_axes, lead)
 
 
+def split_first(t, dims):
+    """``dims`` with those that DTensor ``t`` splits first, or None where
+    ``t`` is not a DTensor or splits none of them: the order in which to
+    flatten them. A flattened group of dims whose split dim is not the
+    major one is a strided shard, whose redistributions DTensor plans by a
+    graph search that grows with the mesh's rank; with the split dim major
+    the flat dim is a plain shard."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return None
+    split = {p.dim for p in t.placements if isinstance(p, Shard)}
+    if not split & set(dims):
+        return None
+    return tuple(sorted(dims, key=lambda d: d not in split))
+
+
+def lac_grad(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    """``x`` as it is, and its gradient on the way back at the placements
+    the rules give ``logical_axes`` (a no-op where ``lac`` is). A sublayer's
+    output joins a sequence-split residual stream at the stream's
+    placements, while its gradient returns to the sublayer whole along the
+    sequence (the all-gather of sequence parallelism's backward), where the
+    sublayer's products would flatten a split sequence into a strided
+    shard."""
+    r = current_rules()
+    if r is None or not x.requires_grad:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return _Constrain.apply(x, None, r.placements(r.spec(logical_axes, tuple(x.shape))))
+
+
 def _lac(x, logical_axes, lead):
     r = current_rules()
     if r is None:
@@ -245,16 +290,17 @@ def _lac(x, logical_axes, lead):
 def _constrain(x, want):
     if not x.requires_grad:
         return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
-    return _Constrain.apply(x, want)
+    return _Constrain.apply(x, want, want)
 
 
 class _Constrain(torch.autograd.Function):
-    """A DTensor at the given placements, forward and backward."""
+    """A DTensor at placements ``want`` (None: as it is), and its gradient
+    at ``grad_want``."""
 
     @staticmethod
-    def forward(ctx, x, want):
-        ctx.want = want
-        if tuple(x.placements) == want:
+    def forward(ctx, x, want, grad_want):
+        ctx.want = grad_want
+        if want is None or tuple(x.placements) == want:
             return x.view_as(x)
         return x.redistribute(x.device_mesh, want)
 
@@ -262,7 +308,81 @@ class _Constrain(torch.autograd.Function):
     def backward(ctx, g):
         if tuple(g.placements) != ctx.want:
             g = g.redistribute(g.device_mesh, ctx.want)
-        return g, None
+        return g, None, None
+
+
+def per_shard(fn, args, in_axes, out_axes):
+    """``fn(*args)``, a function whose work is independent per batch row and
+    per head. Under installed rules, on DTensors, it runs once on each
+    device's shards (``local_map``), so that DTensor dispatches the call
+    once, not each op of a loop inside it. ``in_axes`` gives each argument's
+    logical axes; each is constrained to the placements the rules give them
+    (a dim that is looped over must resolve to no mesh axis). ``out_axes``
+    is a tuple of logical axes per leaf of the flattened output, whose
+    names take the mesh axes they took in the arguments. An argument's
+    gradient comes back at its placements, except on a mesh dim where it
+    is replicated and another argument is split: each shard's gradient of
+    a weight is then its own rows' share, a partial sum."""
+    r = current_rules()
+    from torch.distributed.tensor import DTensor
+
+    if r is None or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names, places = {}, []
+    for a, axes in zip(args, in_axes, strict=True):
+        spec = tuple(r.spec(axes, tuple(a.shape)))
+        for n, e in zip(axes, spec + (None,) * len(axes)):
+            if n is not None:
+                names.setdefault(n, e)
+        places.append(r.placements(PartitionSpec(*spec)))
+    split = {i for pl in places for i, p in enumerate(pl) if isinstance(p, Shard)}
+    grads = [tuple(Partial() if i in split and p == Replicate() else p
+                   for i, p in enumerate(pl)) for pl in places]
+    outs = tuple(r.placements(PartitionSpec(*(names.get(n) if n else None for n in axes)))
+                 for axes in out_axes)
+    args = [_constrain(a, pl) for a, pl in zip(args, places)]
+    return local_map(fn, out_placements=outs, in_placements=tuple(places),
+                     in_grad_placements=tuple(grads), device_mesh=args[0].device_mesh)(*args)
+
+
+_STRATEGIES_REGISTERED = False
+
+
+def _register_strategies() -> None:
+    """Pointwise DTensor sharding strategies for the aten ops that the model
+    reaches and DTensor has none for: ``log_sigmoid_forward`` and
+    ``log_sigmoid_backward`` (``F.logsigmoid``, the mLSTM forget gate).
+    Every tensor at one placement, replicated or split on any dim; the
+    forward's ``buffer`` output, which a CUDA kernel leaves empty, is
+    replicated there."""
+    global _STRATEGIES_REGISTERED
+    if _STRATEGIES_REGISTERED:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    aten = torch.ops.aten
+
+    def alike(x):
+        return [Replicate()] + [Shard(d) for d in range(len(x.shape))]
+
+    def empty_buffer(x) -> bool:
+        return x.mesh.device_type in ("cuda", "xpu")
+
+    @register_sharding(aten.log_sigmoid_forward.default)
+    def _log_sigmoid_forward(x):
+        buf = empty_buffer(x)
+        return [([p, Replicate() if buf else p], [p]) for p in alike(x)]
+
+    @register_sharding(aten.log_sigmoid_backward.default)
+    def _log_sigmoid_backward(grad, x, buffer):
+        buf = empty_buffer(x)
+        return [([p], [p, p, Replicate() if buf else p]) for p in alike(x)]
+
+    _STRATEGIES_REGISTERED = True
 
 
 def replicate(x: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,11 @@
     arguments DTensors at the plan's placements, bit-equal to the same
     calls on plain tensors; on a fake 2×2 mesh each traces, with
     collectives recorded and a peak of live bytes;
-  * the same calls, and those of an MoE and a Mamba arch and of a model
-    whose KV heads do not divide the model axis, on a real 2×2 mesh of
+  * the cells of xlstm-125m, seamless-m4t-large-v2 and jamba at ``:smoke``
+    traced on the fake 2×2 mesh too, and train steps on a fake 2×2×2 mesh;
+  * the same calls, and those of an MoE, a Mamba, an xLSTM and the
+    encoder–decoder arch and of a model whose KV heads do not divide the
+    model axis, on a real 2×2 mesh of
     four gloo processes (``tests/torch_mesh_util.py``), where the
     arguments are split into shards: every output, updated parameter and
     moment gathered back equals the plain run within 2e-4 of its largest
@@ -194,26 +197,63 @@ def test_smoke_cells_on_a_1x1_mesh_bit_equal_to_plain(gloo_mesh, cell):
             assert torch.equal(_plain(g), w)
 
 
-@pytest.mark.parametrize("cell", ["train_4k", "prefill_32k", "decode_32k"])
-def test_smoke_cells_trace_on_a_fake_2x2_mesh(fake_mesh, cell):
-    plan = S.plan_cell(SMOKE, cell, fake_mesh, batch=4, seq=SEQ[cell])
-    trace = plan.trace()
+XLSTM, SEAMLESS = "xlstm-125m:smoke", "seamless-m4t-large-v2:smoke"
+MOE, MAMBA = "granite-moe-3b-a800m:smoke", "jamba-1.5-large-398b:smoke"
+SERVE_CELLS = ["train_4k", "prefill_32k", "decode_32k"]
+
+
+def _check_trace(plan, trace, mesh_name, chips):
     assert trace.collectives["total"] > 0 and sum(trace.collective_counts.values()) > 0
     assert trace.peak_bytes >= trace.arg_bytes == plan.arg_bytes() > 0
     assert trace.flops_per_device > 0 and trace.microbatches_traced == plan.microbatches
-    rl = R.analyze(plan, trace, "2x2")
-    assert rl.chips == 4 and rl.coll_bytes == trace.collectives["total"]
+    rl = R.analyze(plan, trace, mesh_name)
+    assert rl.chips == chips and rl.coll_bytes == trace.collectives["total"]
     assert rl.t_collective > 0 and rl.bottleneck in ("compute", "memory", "collective")
 
 
+@pytest.mark.parametrize("arch,cell", [pytest.param(SMOKE, c, id=c) for c in SERVE_CELLS] + [
+    pytest.param(a, c, id=f"{a}-{c}") for a in (XLSTM, SEAMLESS, MAMBA) for c in SERVE_CELLS])
+def test_smoke_cells_trace_on_a_fake_2x2_mesh(fake_mesh, arch, cell):
+    """Each cell traces over DTensors: xlstm's train step reaches the mLSTM
+    gate's ``log_sigmoid`` backward and its loops run per shard; seamless's
+    cross-attention and jamba's SSD scan too."""
+    plan = S.plan_cell(arch, cell, fake_mesh, batch=4, seq=SEQ[cell])
+    _check_trace(plan, plan.trace(), "2x2", 4)
+
+
+@pytest.fixture
+def fake_mesh_3d():
+    import torch.distributed as dist
+
+    mesh = make_fake_mesh((2, 2, 2), ("pod", "data", "model"))
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", [SMOKE, "glm4-9b:smoke", MAMBA])
+def test_smoke_train_traces_on_a_fake_2x2x2_mesh(fake_mesh_3d, arch):
+    """A train step on a mesh of rank 3, the rank of 2x16x16: DTensor's
+    redistribution planner searches a state space that grows with the
+    mesh's rank, not its widths."""
+    plan = S.plan_cell(arch, "train_4k", fake_mesh_3d, batch=8, seq=SEQ["train_4k"])
+    _check_trace(plan, plan.trace(), "2x2x2", 8)
+
+
 # ------------------------------------------------- a real 2×2 mesh of processes
-MOE, MAMBA = "granite-moe-3b-a800m:smoke", "jamba-1.5-large-398b:smoke"
 MESH_CASES = [
     f"{SMOKE}+microbatches=2/train_4k", f"{SMOKE}/prefill_32k", f"{SMOKE}/decode_32k",
     # one KV head: attention splits its q groups and replicates K/V
     f"{SMOKE}+num_kv_heads=1/train_4k", f"{SMOKE}+num_kv_heads=1/prefill_32k",
     f"{MOE}/train_4k", f"{MOE}+seq=256/prefill_32k", f"{MOE}/decode_32k",
     f"{MAMBA}+seq=128/train_4k", f"{MAMBA}+seq=256/prefill_32k", f"{MAMBA}/decode_32k",
+    # the xLSTM loops per shard (``local_map``): their grads' placements.
+    # The train step in float64: in f32 its plain run is itself off its
+    # float64 one by 3.4e-3 in grad norm (``torch_mesh_util``)
+    f"{XLSTM}+seq=128+f64/train_4k", f"{XLSTM}+seq=128/prefill_32k",
+    # cross-attention per shard, the encoder's output gathered along its sequence
+    f"{SEAMLESS}+seq=256/prefill_32k",
 ]
 RTOL = 2e-4  # of a leaf's largest magnitude: f32 sums split over shards
 

@@ -224,3 +224,28 @@ def test_lac_leaves_plain_logits_bit_equal():
             assert lac(x, "batch", None, "mlp") is x
             ruled, _, _ = model.apply(params, {"tokens": tokens})
     assert torch.equal(plain, ruled)
+
+
+def test_remat_recomputes_under_the_forwards_rules_on_another_thread():
+    """On a CUDA device the backward, and a rematerialised block's
+    recomputation in it, run on autograd's own thread, which does not see
+    the caller's context: ``remat`` carries the forward's rules there."""
+    import threading
+
+    from repro_torch.models.layers import remat
+    from repro_torch.sharding import current_rules, make_rules, use_rules
+
+    seen = []
+
+    def fn(x):
+        seen.append(current_rules())
+        return torch.exp(x)  # its backward reads its output: a recomputation
+
+    rules = make_rules(AbstractMesh((2, 2), ("data", "model")))
+    x = torch.ones(3, requires_grad=True)
+    with use_rules(rules):
+        y = remat(fn, x).sum()
+    t = threading.Thread(target=y.backward)
+    t.start()
+    t.join()
+    assert seen == [rules, rules] and torch.equal(x.grad, torch.exp(torch.ones(3)))

@@ -13,7 +13,11 @@ Run as a script it starts a world of ``--world`` gloo processes (2×2 by
 default) that meet through a FileStore, and rank 0 writes one JSON object
 of results to OUT. A case may change integer fields of the config, the
 length and a train step's microbatch count
-(``qwen3-1.7b:smoke+num_kv_heads=1+seq=128+microbatches=2/train_4k``)::
+(``qwen3-1.7b:smoke+num_kv_heads=1+seq=128+microbatches=2/train_4k``), and
+``+f64`` runs params and compute in float64 (for a step whose f32 plain run
+is itself ill-conditioned: xlstm's train step, whose f32 grad norm differs
+from its float64 one by 3.4e-3 of itself, so that no split of its sums
+could meet the tolerance in f32)::
 
     PYTHONPATH=src python tests/torch_mesh_util.py OUT.json \\
         qwen3-1.7b:smoke/train_4k granite-moe-3b-a800m:smoke/decode_32k
@@ -103,10 +107,11 @@ def _errors(want, got):
     return out
 
 
-def run_case(mesh, arch, cell, seq=None, microbatches=None, **overrides):
+def run_case(mesh, arch, cell, seq=None, microbatches=None, f64=False, **overrides):
     """One cell of ``arch`` on ``mesh``, plain and under the plan's rules
     on its placements, in f32 compute (so that a sum split over shards
-    differs from the whole one by rounding alone). Returns the output
+    differs from the whole one by rounding alone; ``f64``: params and
+    compute in float64, where the model keeps its own f32 parts). Returns the output
     leaves' errors (and, for a train step, the updated state's), the count
     of arguments that are split over some mesh axis and the collectives
     the sharded run made."""
@@ -114,9 +119,10 @@ def run_case(mesh, arch, cell, seq=None, microbatches=None, **overrides):
     from torch.distributed.tensor.debug import CommDebugMode
 
     t0 = time.perf_counter()
+    dtype = {"compute_dtype": torch.float64, "param_dtype": torch.float64} if f64 else {
+        "compute_dtype": torch.float32}
     plan = with_microbatches(S.plan_cell(arch, cell, mesh, batch=4, seq=seq or SEQ[cell],
-                                         compute_dtype=torch.float32, **overrides),
-                             microbatches)
+                                         **dtype, **overrides), microbatches)
     args = concrete(plan)
     plain_args = copy.deepcopy(args)
     sharded = sum(tree_leaves(plan.map_args(
@@ -152,7 +158,8 @@ def _worker(rank, world, store, cases, out):
             arch, *kv = arch.split("+")
             try:
                 results[case] = run_case(mesh, arch, cell, **{
-                    k: int(v) for k, v in (o.split("=") for o in kv)})
+                    k: int(v) if v else True
+                    for k, _, v in (o.partition("=") for o in kv)})
             except Exception:  # the same program fails on every rank alike
                 results[case] = {"error": traceback.format_exc()}
         if rank == 0:
@@ -165,7 +172,7 @@ def _worker(rank, world, store, cases, out):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("out")
-    ap.add_argument("cases", nargs="+", help="arch[+field=int...]/cell")
+    ap.add_argument("cases", nargs="+", help="arch[+field=int...][+f64]/cell")
     ap.add_argument("--world", type=int, default=4)
     a = ap.parse_args(argv)
     store_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
