@@ -35,7 +35,16 @@ exits non-zero without the final line:
                prefill's bit for bit, and the path must launch both kernels:
                flash once a layer per prefill, the k-way merge once a fetch
                that arrived in more than one run;
-  6. failover — the main path's model, prompts and new tokens on the main
+  6. paper_figures — the paper's evaluation on the port, device the card:
+               ``benchmarks_torch``'s fig18 (OffloadPrep through
+               ``PrepPipeline``), fig20 (the serving plane) and fig21
+               (pushdown) at ``--smoke``, every row and claim printed; fig20's
+               Part A at qwen3-1.7b's full width on the ``main`` phase's
+               model, params, prompt and stored cache (attach against
+               recompute, the fetched cache the one put, bit for bit); and
+               ``examples_torch/serving.py``; a crash or a failed claim that
+               is not a wall-clock one fails the smoke;
+  7. failover — the main path's model, prompts and new tokens on the main
                path's volume shape behind a ``ClusterRouter`` over a
                ``FaultyFabric``: cold; one engine killed, the warm run that
                meets it fails; ``probe()`` quarantines it within
@@ -46,7 +55,7 @@ exits non-zero without the final line:
                standby serves the first prompt warm. Tokens equal the main
                phase's every time, fetched caches the prefill's bit for bit,
                no lease left;
-  7. archs   — glm4-9b, granite-3-8b and mistral-nemo-12b at full width and
+  8. archs   — glm4-9b, granite-3-8b and mistral-nemo-12b at full width and
                depth (f32 params, bf16 compute, random weights), one after
                the other: in memory, and glm4-9b also cold and warm through
                the main path's store; flash once a layer per prefill (GQA
@@ -54,7 +63,7 @@ exits non-zero without the final line:
                ``n_params`` the JAX package's; each arch (here and in
                ``families``) first runs one untimed prefill, so that the
                runs' prefill times are warm;
-  8. families — the vision frontend, MoE and Mamba-2 SSD, one arch after
+  9. families — the vision frontend, MoE and Mamba-2 SSD, one arch after
                the other (f32 params, bf16 compute, random weights):
                phi-3-vision-4.2b at full width and depth (a stub frontend
                of 1,024 embeddings before 4,096 text tokens; flash once a
@@ -70,7 +79,7 @@ exits non-zero without the final line:
                (f32) in prefill and 16 decode steps against the same layer
                over the whole sequence; one AdamW step of granite-moe,
                grok-1 and jamba at ``:smoke`` on the card against the CPU;
-  9. recurrent_encdec — xLSTM and the audio encoder–decoder (f32 params,
+ 10. recurrent_encdec — xLSTM and the audio encoder–decoder (f32 params,
                bf16 compute, random weights): xlstm-125m at full width and
                depth (mLSTM and sLSTM blocks, no attention) in memory, cold
                and warm through the main path's store, tokens equal, fetched
@@ -85,14 +94,14 @@ exits non-zero without the final line:
                (non-causal: the encoder runs in train mode inside the
                prefill) and once a decoder layer (causal) a prefill; one
                AdamW step of both at ``:smoke`` on the card against the CPU;
- 10. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
+ 11. prep    — OffloadPrep through ``PrepPipeline`` on 1,024 images of the
                synthetic corpus (sides 64-512) on a volume behind one
                storage engine: a third of each 256-image minibatch
                preprocessed by the engine's numpy stub, the rest on the card
                by one batch preprocess launch a minibatch; every batch bit
                for bit equal to a host numpy golden, before and after a
                checkpoint into OffloadDB, a remount and a resume;
- 11. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
+ 12. pushdown — OffloadDB on a 4-stripe volume behind 4 engines, 200,000
                keys of fig21's shape, a ~10 % filter: the pushdown scan,
                merged on the card by one k-way merge launch, equals the
                local scan, and its merge equals the plain merge bit for
@@ -100,28 +109,28 @@ exits non-zero without the final line:
                merge there orders nothing: streams of the scan's lengths
                with distinct prefixes go through ``merge_row_streams`` on
                the card against a plain host merge;
- 12. merge_at_path — the k-way merge timed at the path's shapes (a fetch's
+ 13. merge_at_path — the k-way merge timed at the path's shapes (a fetch's
                900 chunk indices in its runs and in 900 runs of one, the
                scan's and the distinct-prefix streams) against its plain
                version, one stable sort and, at the fetch, the two-run fold
                it replaces; each bit for bit;
- 13. train_small — one AdamW ``make_train_step`` step of qwen3-1.7b:smoke
+ 14. train_small — one AdamW ``make_train_step`` step of qwen3-1.7b:smoke
                (f32) at S = 2,304, past the flash threshold, on the card
                against the same step on the CPU: loss, grad_norm, every
                param and moment; the flash kernel must not launch (the
                train path runs the differentiable chunked twin);
- 14. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
+ 15. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
                width with prep ingest: 12 steps, a checkpoint into OffloadDB
                every 4, a crash after step 8, recover, restore, resume; the
                resumed losses bit for bit those of an uninterrupted run, the
                restored ingest state the one saved, every minibatch the
                crash run consumed bit for bit the host numpy golden (out
                32), one preprocess launch per minibatch, no merge launch;
- 15. train     — qwen3-1.7b at full width (28 layers, bf16 compute over f32
+ 16. train     — qwen3-1.7b at full width (28 layers, bf16 compute over f32
                params, remat) at S 4,096, batch 2: the first three AdamW
                steps of ``for_config``'s schedule on one batch (finite,
                falling loss), then one at microbatches 2.
- 16. distribution — qwen3-1.7b at full width, each of its cells planned by
+ 17. distribution — qwen3-1.7b at full width, each of its cells planned by
                ``launch.specs.plan_cell`` on a real 1x1 DeviceMesh (NCCL,
                a world of one) and run under the plan's sharding rules
                with its arguments DTensors at the plan's placements,
@@ -141,7 +150,7 @@ exits non-zero without the final line:
                row with collective bytes, a peak and the three roofline
                terms) and a plan of all 32 cells x 2 meshes. The same for
                xlstm-125m at full width and depth (train_4k 256 -> 2 with
-               its sequence cut 4,096 -> 1,024; prefill_32k 32 -> 1 with
+               its sequence cut 4,096 -> 512; prefill_32k 32 -> 1 with
                its sequence cut 32,768 -> 4,096;
                decode_32k 128 -> 8, the whole recurrent state bit-equal),
                the first run of its per-shard loops and of the mLSTM
@@ -943,10 +952,90 @@ def phase_main():
          fetched_cache_bit_equal=fetched,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          tokens=cold.tolist())
-    return launches, entry.nchunks, max(2, max(runs_per_fetch)), cold
+    # paper_figures times fig20's Part A on this model, prompt and stored
+    # cache: the timers and spies come off first
+    del model.apply, store.put, store.fetch, store._assemble
+    served = {"cfg": cfg, "model": model, "params": params, "prompt": prompt, "store": store,
+              "put_cache": prefilled[0]}
+    return launches, entry.nchunks, max(2, max(runs_per_fetch)), cold, served
 
 
 # ------------------------------------------------------------ phase 6
+# the paper's evaluation on the port: the figures that drive the path's
+# kernels, at --smoke, and fig20's Part A at the main path's full width
+PAPER_FIGURES = ("fig18_prep_pipeline", "fig20_kv_serving", "fig21_pushdown")
+PART_A_REPS = 3
+
+
+def phase_paper_figures(served: dict):
+    """fig20's Part A at qwen3-1.7b's full width on the ``main`` phase's
+    model, params, prompt and stored cache (no second init, no second put);
+    then ``benchmarks_torch``'s fig18, fig20 and fig21 at ``--smoke`` with
+    the device set to the card, and ``examples_torch/serving.py``. Every row
+    is printed; a crash, or a failed claim that is not a wall-clock one
+    (``common.WALL_CLOCK``), fails the smoke. Empties ``served``. Returns
+    the phase's launches of each kernel."""
+    import importlib
+    import io
+
+    from benchmarks_torch import common
+    from benchmarks_torch import fig20_kv_serving as fig20
+    from examples_torch import serving as serving_example
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kvmerge
+    from repro_torch.kernels import preprocess as kpp
+
+    cfg = served["cfg"]
+    fa.LAUNCHES = kvmerge.LAUNCHES = kpp.LAUNCHES = 0
+    rows, argv, seconds = io.StringIO(), sys.argv, {}
+    common.DEVICE, common.OUT, common.FAILURES = "cuda", rows, 0
+    try:
+        t0 = time.perf_counter()
+        part_a = fig20.attach_vs_recompute(served["model"], served["params"], served["prompt"],
+                                           served["store"], PART_A_REPS)
+        part_a["identical"] = fig20.identical(served["put_cache"], part_a)
+        fig20.emit_full_width(part_a, cfg.name, cfg, BATCH, PROMPT, served["store"])
+        seconds["fig20_full_width"] = time.perf_counter() - t0
+        # the main model goes before the figures run: a fabric's worker
+        # keeps its last job, whose future holds the error a figure provoked
+        # (fig20's mid-fetch kill) and, through its traceback, every frame
+        # above it, this phase's and its caller's included
+        del part_a["fetched"]
+        served.clear()
+        for name in PAPER_FIGURES:
+            sys.argv = [name, "--smoke", "--device", "cuda"]
+            t0 = time.perf_counter()
+            importlib.import_module(f"benchmarks_torch.{name}").main()
+            seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serving_example.main(["--device", "cuda"])
+        seconds["examples_torch/serving.py"] = time.perf_counter() - t0
+    finally:
+        sys.argv, common.OUT = argv, None
+    launches = {"flash_attention": fa.LAUNCHES, "merge": kvmerge.LAUNCHES,
+                "preprocess": kpp.LAUNCHES}
+    claims = [line.split(",", 2) for line in rows.getvalue().splitlines()
+              if line.startswith("claim/")]
+    failed = [name[len("claim/"):] for name, value, _ in claims if value != "PASS"]
+    functional = [c for c in failed if c not in common.WALL_CLOCK]
+    emit("paper_figures",
+         figures=["fig20_kv_serving full width (the main phase's model, prompt and stored cache)"]
+         + [f"benchmarks_torch.{n} --smoke" for n in PAPER_FIGURES] + ["examples_torch/serving.py"],
+         part_a_full_width={"model": cfg.name, "batch": BATCH, "prompt": PROMPT,
+                            "recompute_ms": part_a["recompute_ms"],
+                            "attach_ms": part_a["attach_ms"], "ratio": part_a["ratio"],
+                            "timed": f"mean of {PART_A_REPS} after one untimed",
+                            "identical": part_a["identical"]},
+         claims=len(claims), failed_claims=failed, launches=launches, seconds=seconds)
+    check(not functional, f"functional claims failed: {functional}")
+    check(launches["flash_attention"] == (PART_A_REPS + 1) * cfg.num_layers,
+          f"Part A's {PART_A_REPS + 1} prefills launched flash {launches['flash_attention']} "
+          f"times, want {(PART_A_REPS + 1) * cfg.num_layers}")
+    check(launches["merge"] > 0, "no fetch or scan of the figures merged on the card")
+    return launches
+
+
+# ------------------------------------------------------------ phase 7
 def failover_plane():
     """The failover path's plane: ``_kv_plane`` on a ``FaultyFabric`` with a
     fixed seed, under ``ClusterRouter(off, max_probe_failures=2)``, and the
@@ -1157,7 +1246,7 @@ def phase_failover(want):
     return rec["launches"]
 
 
-# ------------------------------------------------------------ phase 7
+# ------------------------------------------------------------ phase 8
 def _cache_bit_equal(a, b) -> bool:
     import torch
 
@@ -1361,7 +1450,7 @@ def phase_archs():
     return launches
 
 
-# ------------------------------------------------------------ phase 8
+# ------------------------------------------------------------ phase 9
 def _free():
     import torch
 
@@ -1593,7 +1682,7 @@ def phase_families():
     _free()
     return launches
 
-# ------------------------------------------------------------ phase 9
+# ------------------------------------------------------------ phase 10
 def _slstm_share(model, params, prompt):
     """One more prefill of ``prompt``, each sLSTM layer timed alone (a
     device synchronise before and after): its share of the prefill."""
@@ -1749,7 +1838,7 @@ def phase_recurrent_encdec():
     return launches
 
 
-# ------------------------------------------------------------ phase 10
+# ------------------------------------------------------------ phase 11
 def _prep_plane(dev=None):
     """A volume of 2^17 blocks behind one storage engine that serves
     ``stub_preprocess`` (and OffloadDB's stubs); with ``dev`` it remounts
@@ -1906,7 +1995,7 @@ def phase_prep():
     return launches
 
 
-# ------------------------------------------------------------ phase 11
+# ------------------------------------------------------------ phase 12
 class _MergeRecord:
     """While in use, records the input and the result of every
     ``ops.merge_runs`` call; the call itself is the path's, so the kernel's
@@ -2051,7 +2140,7 @@ def phase_pushdown():
                       "scan_distinct_prefixes": distinct_merges.calls[0][0]}
 
 
-# ------------------------------------------------------------ phases 13-15
+# ------------------------------------------------------------ phases 14-16
 @contextlib.contextmanager
 def deterministic():
     """``torch.use_deterministic_algorithms(True)`` for the block: an op
@@ -2344,7 +2433,7 @@ def phase_train():
     return flash
 
 
-# ------------------------------------------------------------ phase 16
+# ------------------------------------------------------------ phase 17
 # distribution path: qwen3-1.7b at full width under each cell's sharding
 # rules on a real 1x1 mesh, each cell's global batch cut to fit one card
 DIST_ARCH = "qwen3-1.7b"
@@ -2361,13 +2450,13 @@ DIST_SEED = 19
 DIST_XLSTM = "xlstm-125m"
 XLSTM_CUTS = {
     "train_4k": (2, "global batch 256 -> 2 (microbatches 1, TRAIN_MICROBATCHES); sequence "
-                    "4,096 -> 1,024 (a step at 4,096 takes 46 s: the sLSTM loop's ~20 "
-                    "launches a step, forward and backward)"),
+                    "4,096 -> 512 (a step at 4,096 takes 46 s, at 1,024 11 s: the sLSTM "
+                    "loop's ~20 launches a step, forward and backward)"),
     "prefill_32k": (1, "global batch 32 -> 1; sequence 32,768 -> 4,096 (the sLSTM loop "
                        "launches ~20 kernels a step)"),
     "decode_32k": (8, "global batch 128 -> 8"),
 }
-XLSTM_TRAIN_SEQ, XLSTM_PREFILL_SEQ = 1024, 4096
+XLSTM_TRAIN_SEQ, XLSTM_PREFILL_SEQ = 512, 4096
 DIST_SEAMLESS = "seamless-m4t-large-v2"
 SEAMLESS_CUTS = {"prefill_32k": (1, "global batch 32 -> 1")}
 
@@ -2733,7 +2822,9 @@ def main() -> int:
     fa_rec = timed_phase("kernels", phase_kernels)
     pp_rec = timed_phase("kernels_preprocess", phase_kernels_preprocess)
     timed_phase("small", phase_small)
-    launches, nchunks, nruns, main_tokens = timed_phase("main", phase_main)
+    launches, nchunks, nruns, main_tokens, served = timed_phase("main", phase_main)
+    paper_launches = timed_phase("paper_figures", phase_paper_figures, served)
+    _free()
     failover_launches = timed_phase("failover", phase_failover, main_tokens.cpu())
     arch_launches = timed_phase("archs", phase_archs)
     family_launches = timed_phase("families", phase_families)
@@ -2754,6 +2845,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:29",
          "launches": launches["flash_attention"], "max_abs_err": fa_rec["max_abs_err"],
          "launches_by_path": {"serve": launches["flash_attention"],
+                              "paper_figures": paper_launches["flash_attention"],
                               "failover": failover_launches["flash_attention"],
                               "archs": arch_launches["flash_attention"],
                               "families": family_launches["flash_attention"],
@@ -2771,6 +2863,7 @@ def main() -> int:
          "launches": launches["merge"], "max_abs_err": mg_rec["max_abs_err"],
          "payload_mismatches": mg_rec["payload_mismatches"],
          "launches_by_path": {"serve": launches["merge"],
+                              "paper_figures": paper_launches["merge"],
                               "failover": failover_launches["merge"],
                               "archs": arch_launches["merge"],
                               "families": family_launches["merge"],
@@ -2784,6 +2877,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/preprocess.py:41",
          "launches": prep_launches["preprocess"], "max_abs_err": pp_rec["max_abs_err"],
          "launches_by_path": {"prep": prep_launches["preprocess"],
+                              "paper_figures": paper_launches["preprocess"],
                               "train_e2e": e2e_launches["preprocess"]},
          "differing_elements": pp_rec["differing_elements"],
          "ms": pp_rec["ms"], "plain_ms": pp_rec["plain_ms"], "bound_ms": pp_rec["bound_ms"],

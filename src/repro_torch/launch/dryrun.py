@@ -8,9 +8,10 @@ roofline. Usage::
         [--cell train_4k] [--multi-pod | --single-pod | --both]
         [--out dryrun.jsonl] [--plan-only] [--perf]
 
-One JSON line per cell, ``status`` OK, SKIP or FAIL; a FAIL names the op
-that failed. ``--plan-only`` stops after the plan: argument bytes per
-device and the analytic roofline terms, no trace. A train cell of several
+One JSON line per cell, ``status`` OK, SKIP or FAIL, with the torch
+release that planned it (``torch``); a FAIL names the op that failed.
+``--plan-only`` stops after the plan: argument bytes per device and the
+analytic roofline terms, no trace. A train cell of several
 microbatches is traced over one and scaled (its ``notes`` say so).
 
 The fake process group is set up inside ``main()``, never at import; it
@@ -28,6 +29,8 @@ import traceback
 
 def run_cell(arch: str, cell_name: str, multi_pod: bool, perf: bool = False,
              plan_only: bool = False):
+    import torch
+
     from repro_torch import roofline as R
     from repro_torch.launch.mesh import abstract_production_mesh, make_production_mesh
     from repro_torch.launch.specs import CellSkip, plan_cell
@@ -40,10 +43,11 @@ def run_cell(arch: str, cell_name: str, multi_pod: bool, perf: bool = False,
         plan = plan_cell(arch, cell_name, mesh, perf=perf)
     except CellSkip as e:
         return {"arch": arch, "cell": cell_name, "mesh": mesh_name,
-                "status": "SKIP", "reason": str(e)}
+                "status": "SKIP", "reason": str(e), "torch": torch.__version__}
     t_plan = time.perf_counter() - t0
     row = {"arch": arch, "cell": cell_name, "mesh": mesh_name, "status": "OK",
-           "t_plan_s": round(t_plan, 3), "arg_bytes": plan.arg_bytes()}
+           "torch": torch.__version__, "t_plan_s": round(t_plan, 3),
+           "arg_bytes": plan.arg_bytes()}
     trace = None
     if not plan_only:
         trace = plan.trace(one_microbatch=True)

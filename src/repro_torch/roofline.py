@@ -18,6 +18,12 @@ from its per-device shape and group size by the reference's ring model.
 Python loops unroll, so no op needs a trip-count multiplier. The xLSTM
 and SSD loops run inside ``local_map`` on each device's shards, so they
 unroll there, as local ops that the recorder sees one by one.
+
+A shard moved from one dim to another is priced as what torch emits for
+it, which depends on the torch release: DTensor gathers the shard and
+splits it again (an all-gather), where the reference prices the same move
+as one all-to-all, local·(n-1)/n. A traced row's ``notes`` say so
+(``RESHARD_NOTE``).
 """
 from __future__ import annotations
 
@@ -441,6 +447,11 @@ class TraceRecorder(TorchDispatchMode):
 # =====================================================================
 # Roofline report
 # =====================================================================
+RESHARD_NOTE = ("collectives as torch " + torch.__version__.split("+")[0] + " emits them: a "
+                "shard moved between dims is priced as its all-gather, not as the "
+                "reference's all-to-all")
+
+
 @dataclass
 class Roofline:
     arch: str
@@ -522,5 +533,5 @@ def analyze(plan, trace, mesh_name: str) -> Roofline:
         memory_per_device=float(trace.peak_bytes if trace is not None
                                 else plan.arg_bytes()),
         coll_breakdown={k: v for k, v in colls.items() if k != "total"},
-        notes=plan.notes,
+        notes=plan.notes + (f"; {RESHARD_NOTE}" if trace is not None else ""),
     )

@@ -3,7 +3,10 @@
 ``repro_torch`` keeps its own copies of the ``repro`` modules it needs; a
 subprocess imports every one of its modules and finds no ``jax`` and no
 ``repro``/``repro.*`` in ``sys.modules``, and an AST walk over its sources
-finds no such import, lazy ones included.
+finds no such import, lazy ones included. The port's evaluation,
+``benchmarks_torch`` and ``examples_torch``, is held the same way, and
+neither it nor the package imports the reference's ``benchmarks`` or
+``examples``.
 """
 import ast
 import json
@@ -12,8 +15,12 @@ import subprocess
 import sys
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent.parent / "src"
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
 PKG = SRC / "repro_torch"
+# the port's evaluation: top-level trees beside the reference's
+EVAL = [ROOT / "benchmarks_torch", ROOT / "examples_torch"]
+FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "ml_dtypes", "benchmarks", "examples")
 
 
 def _modules():
@@ -21,6 +28,9 @@ def _modules():
         rel = path.relative_to(SRC).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         yield ".".join(parts), path
+    for tree in EVAL:
+        for path in sorted(tree.glob("*.py")):
+            yield f"{tree.name}.{path.stem}", path
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
@@ -29,16 +39,16 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "             or k == 'repro' or k.startswith('repro.'))\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                          text=True, timeout=120)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(SRC), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     assert len(names) >= 25
+    assert sum(m.startswith(("benchmarks_torch.", "examples_torch.")) for m in names) == 24
 
 
 def test_sources_import_no_jax_and_no_repro():
@@ -52,7 +62,6 @@ def test_sources_import_no_jax_and_no_repro():
             else:
                 continue
             for t in targets:
-                root = t.split(".")[0]
-                if root in ("jax", "jaxlib", "repro", "flax", "ml_dtypes"):
+                if t.split(".")[0] in FORBIDDEN:
                     found.append(f"{mod}:{node.lineno} imports {t}")
     assert not found, found
