@@ -444,7 +444,13 @@ def phase_kernels():
         ("seamless_enc_noncausal_g1_d64_bf16", BATCH, SEAMLESS_FRAMES, 16, 1, 64,
          torch.bfloat16, False, 0.0),
         ("seamless_dec_g1_d64_bf16", BATCH, PROMPT, 16, 1, 64, torch.bfloat16, True, 0.0),
+        # checked, not timed: the edges of the D 96 layout (three 32-column
+        # boxes) and of the D 64 one (192-row q tiles)
+        ("d96_ragged_noncausal_g2_bf16", BATCH, 1000, 2, 2, 96, torch.bfloat16, False, 0.0),
+        ("d96_kv1_g4_bf16", BATCH, 777, 1, 4, 96, torch.bfloat16, True, 0.0),
+        ("d64_s193_g3_bf16", BATCH, 193, 8, 3, 64, torch.bfloat16, True, 0.0),
     ]
+    check_only = {"d96_ragged_noncausal_g2_bf16", "d96_kv1_g4_bf16", "d64_s193_g3_bf16"}
 
     def flash_case(name, B, S, KV, G, D, dt, causal, cap):
         q, k, v = _flash_inputs(B, S, KV, G, D, dt, seed=len(results))
@@ -458,6 +464,9 @@ def phase_kernels():
                "softcap": cap, **errs, "tol": tol}
         emit("flash_check", case=name, **rec)
         check(ok, f"flash {name}: errors {errs} beyond {tol}")
+        if name in check_only:
+            results[name] = rec
+            return
         rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                        softcap=cap), 10)
         rec["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(
@@ -477,6 +486,7 @@ def phase_kernels():
         flops, nbytes = _flash_work(q, k, causal)
         peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peak)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         rec["flops"], rec["bytes"] = flops, nbytes
         results[name] = rec
         del q, k, v, out
@@ -488,7 +498,8 @@ def phase_kernels():
     fa_rec = dict(results["prefill_bf16"])
     fa_rec["arch_shapes"] = {name: {k: results[name].get(k) for k in (
         "shape", "dtype", "softcap", "max_abs_err", "rel_err", "row_rel_err", "tol", "ms",
-        "plain_ms", "library", "library_ms", "bound_ms", "bound_by")}
+        "plain_ms", "library", "library_ms", "ms_over_library", "bound_ms", "bound_by",
+        "share_of_bound")}
         for name in ("glm4_g16_bf16", "kv8_g4_bf16", "phi3v_d96_g1_bf16",
                      "granite_moe_g3_bf16", "grok_g6_softcap_bf16", "d96_f32",
                      "seamless_enc_noncausal_g1_d64_bf16", "seamless_dec_g1_d64_bf16")}
@@ -2856,7 +2867,8 @@ def main() -> int:
          "rel_err": fa_rec["rel_err"], "row_rel_err": fa_rec["row_rel_err"],
          "ms": fa_rec["ms"], "plain_ms": fa_rec["plain_ms"], "bound_ms": fa_rec["bound_ms"],
          "bound_by": fa_rec["bound_by"], "library_ms": fa_rec["library_ms"],
-         "ms_over_library": fa_rec["ms_over_library"], "arch_shapes": fa_rec["arch_shapes"]},
+         "ms_over_library": fa_rec["ms_over_library"],
+         "share_of_bound": fa_rec["share_of_bound"], "arch_shapes": fa_rec["arch_shapes"]},
         {"name": "merge", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/merge.cu",
          "replaces": "src/repro/kernels/kvmerge.py:24",

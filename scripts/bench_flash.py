@@ -9,10 +9,13 @@ earlier commit's ``flash_attention.cu``, say, with extra ``nvcc`` flags
 after a colon, comma-separated) with ``nvcc``, all started together, and
 prints what ptxas said (registers, spills, stack frames, warnings). Then,
 in one child process per build (so that a hung kernel is killed at a time
-limit), it holds each against the plain version on the cases below
-(``ref.flash_attention_check``), and last times every build that passed,
-in turns (A B C C B A), at the prefill shape (qwen3-1.7b: B 2, S 4,096,
-8 kv heads × 2, D 128, causal) and at S 8,192, beside
+limit), it holds each against the plain version on the cases below and at
+the timed shapes (``ref.flash_attention_check``), and last times every
+build that passed, in turns (A B C C B A), at the shapes of ``TIMED``: the
+prefill shape (qwen3-1.7b: B 2, S 4,096, 8 kv heads × 2, D 128, causal),
+S 8,192, the archs' G 4, phi-3-vision's D 96 (S 5,120, 32 heads), and the
+D 64 shapes of seamless-m4t-large-v2's encoder (non-causal, S 3,072) and
+decoder and of granite-moe-3b-a800m (G 3), beside
 ``F.scaled_dot_product_attention`` with ``enable_gqa``. One JSON line per
 phase; the card's name and power limit first.
 """
@@ -40,8 +43,21 @@ CASES = [
     ("sq37_sk150", 2, 37, 150, 2, 2, 64, True, 0.0),
     ("sq150_sk37", 2, 150, 37, 2, 2, 128, True, 0.0),
     ("g1_kv1", 1, 300, 300, 1, 1, 128, True, 0.0),
+    # D 96 (three 32-column boxes) and D 64 (192-row q tiles) at their edges
+    ("d96_sq77", 2, 77, 77, 2, 1, 96, True, 0.0),
+    ("d96_ragged_noncausal_g2", 2, 1000, 1000, 2, 2, 96, False, 0.0),
+    ("d96_sq150_sk37", 2, 150, 37, 1, 4, 96, True, 0.0),
+    ("d96_sq37_sk150", 2, 37, 150, 2, 2, 96, True, 0.0),
+    ("d64_sq193", 2, 193, 193, 2, 2, 64, True, 0.0),
+    ("d64_sq385_noncausal", 1, 385, 385, 1, 3, 64, False, 0.0),
 ]
-TIMED = [("prefill", 2, 4096, 8, 2, 128), ("s8192", 1, 8192, 8, 2, 128)]
+# name, B, S, KV, G, D, causal
+TIMED = [("prefill", 2, 4096, 8, 2, 128, True), ("s8192", 1, 8192, 8, 2, 128, True),
+         ("kv8_g4", 2, 4096, 8, 4, 128, True),
+         ("phi3v_d96", 2, 5120, 32, 1, 96, True),
+         ("seamless_enc_d64", 2, 3072, 16, 1, 64, False),
+         ("seamless_dec_d64", 2, 4096, 16, 1, 64, True),
+         ("granite_moe_d64", 2, 4096, 8, 3, 64, True)]
 
 
 def emit(phase, **kw):
@@ -107,7 +123,8 @@ def child_check(label, lib_path):
 
     fa = _use(lib_path)
     results, ok_all = {}, True
-    for i, (name, B, Sq, Sk, KV, G, D, causal, cap) in enumerate(CASES):
+    timed = [(name, B, S, S, KV, G, D, causal, 0.0) for name, B, S, KV, G, D, causal in TIMED]
+    for i, (name, B, Sq, Sk, KV, G, D, causal, cap) in enumerate(CASES + timed):
         q, k, v = _inputs(B, Sq, Sk, KV, G, D, seed=i)
         out = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
         torch.cuda.synchronize()
@@ -129,21 +146,21 @@ def child_time(libs, iters):
 
     fns = {label: fa.bind(ctypes.CDLL(path)) for label, path in libs.items()}
 
-    for name, B, S, KV, G, D in TIMED:
+    for name, B, S, KV, G, D, causal in TIMED:
         q, k, v = _inputs(B, S, S, KV, G, D, seed=100)
-        flops, nbytes = chip_smoke._flash_work(q, k, True)
+        flops, nbytes = chip_smoke._flash_work(q, k, causal)
         bound_ms, by = chip_smoke.bound(flops, nbytes, chip_smoke.PEAK_BF16)
         order = list(libs) + list(reversed(libs))
         times = {label: [] for label in libs}
         for label in order:
             fa._fn = (lambda f: (lambda: f))(fns[label])
             times[label].append(chip_smoke.time_ms(
-                lambda: fa.flash_attention(q, k, v, causal=True), iters))
+                lambda: fa.flash_attention(q, k, v, causal=causal), iters))
         qt = q.reshape(B, S, KV * G, D).transpose(1, 2).contiguous()
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
         lib_ms = chip_smoke.time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
-        emit("time", shape=name, B=B, S=S, KV=KV, G=G, D=D, flops=flops,
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
+        emit("time", shape=name, B=B, S=S, KV=KV, G=G, D=D, causal=causal, flops=flops,
              bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
              ms={label: t for label, t in times.items()},
              tflops={label: flops / (min(t) * 1e9) for label, t in times.items()},

@@ -10,66 +10,86 @@
 // What bounds it: at the prefill shape (qwen3-1.7b, B=2, S=4096, 16 heads,
 // D=128, causal) one call does 4*B*H*S*S*D/2 = 1.37e11 FLOP on ~100 MB of
 // q/k/v/o, so it is bound by operations (the tensor cores), not bytes: the
-// design is about keeping wgmma busy.
+// design is about keeping wgmma busy. At D 64 the exponentials of a tile
+// (16 a clock an SM) take as long as its products, so there the design is
+// about running the two at once.
 //
 // The model layout (B, S, KV, G, D) is read in place: q is seen as
 // (B, S, H, D) with H = KV*G, k/v as (B, S, KV, D), and q head h reads kv
 // head h / G (no repeat of K/V). The last dimension is contiguous and every
 // stride a multiple of 16 bytes, as TMA needs.
 //
-//   * bf16 (the serving path), FlashAttention-3's shape. A CTA of three
-//     warpgroups works on 128-row q tiles of one (batch, head) each. Tiles
-//     are numbered heaviest first (causal q tiles from the last), and
-//     causal kv tiles wholly above the diagonal are never loaded. The grid
-//     is persistent: one CTA per SM walks a snake through the numbered
-//     tiles (even rounds left to right, odd ones right to left), which
-//     evens out the causal tiles' sizes, lets the producer load the next
-//     tile's Q, K and V while the consumers finish this one, and lifts any
-//     limit on B * H.
-//     - Producer warpgroup (registers lowered to 40 by setmaxnreg): one
-//       thread issues TMA loads. Tensor maps over the strided model layout
-//       (rank 4: D, heads, S, B; built on the host with
-//       cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
-//       no -lcuda) copy 64-column boxes (the 128-byte swizzle span) into
-//       shared memory with the 128-byte swizzle; rows past Sq or Sk come
-//       in as zeros. Q has a full and an empty mbarrier (released after the
-//       tile's last Q K^T); K and V stream through 2 stages of 128 keys,
-//       each with a full and an empty mbarrier, K and V on separate
-//       barriers so Q K^T starts before V has landed. At D = 128:
-//       Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.
-//     - Two consumer warpgroups (registers raised to 232), 64 q rows each.
-//       S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
-//       K-major, through swizzled descriptors; O += P V is wgmma with A = P
-//       in registers (the S accumulator's fragment layout is the register
-//       A operand's, so P is S converted to bf16 in place) and B = V in
-//       shared memory, MN-major (the descriptor's transpose bit). Both
+//   * bf16 (the serving path), FlashAttention-3's shape. A CTA of one
+//     producer and WG consumer warpgroups works on q tiles of 64 * WG rows
+//     of one (batch, head) each. Tiles are numbered heaviest first (causal
+//     q tiles from the last), and causal kv tiles wholly above the
+//     diagonal are never loaded. The grid is persistent: one CTA per SM
+//     walks a snake through the numbered tiles (even rounds left to right,
+//     odd ones right to left), which evens out the causal tiles' sizes,
+//     lets the producer load the next tile's Q, K and V while the
+//     consumers finish this one, and lifts any limit on B * H.
+//     - Producer warpgroup (registers lowered by setmaxnreg): one thread
+//       issues TMA loads. Tensor maps over the strided model layout (rank
+//       4: D, heads, S, B; built on the host with cuTensorMapEncodeTiled,
+//       reached through cudaGetDriverEntryPoint, so no -lcuda) copy boxes
+//       into shared memory under a swizzle: 64 columns (one 128-byte row,
+//       the 128-byte swizzle) where 64 divides D, else 32 (the 64-byte
+//       swizzle); rows past Sq or Sk come in as zeros. Q has a full and an
+//       empty mbarrier (released after the tile's last Q K^T); K and V
+//       stream through 2 stages of 128 keys, each with a full and an empty
+//       mbarrier, K and V on separate barriers so Q K^T starts before V
+//       has landed.
+//     - Consumer warpgroups (registers raised by setmaxnreg), 64 q rows
+//       each. S = Q K^T is wgmma m64n128k16 with both operands in shared
+//       memory, K-major, through swizzled descriptors; O += P V is wgmma
+//       m64nDk16 with A = P in registers (the S accumulator's fragment
+//       layout is the register A operand's, so P is S converted to bf16 in
+//       place) and B = V in shared memory, MN-major (the descriptor's
+//       transpose bit; its leading offset steps from box to box). Both
 //       accumulate in f32 registers. The softmax runs on the accumulator
 //       fragments (a row's 128 keys sit in one quad of lanes; max and sum
 //       by halving trees, not serial chains), with scale * log2(e) folded
 //       into one FFMA before ex2. Only tiles that cross the diagonal or the
-//       ragged end of Sk are masked; the others run a mask-free body. One
-//       warpgroup's softmax overlaps the other's products: the two run
-//       out of step on the tensor cores with no barrier between them.
+//       ragged end of Sk are masked; the others run a mask-free body.
 //     - Epilogue: normalise in registers, write bf16 through the output's
 //       strides, rows past Sq skipped.
-//     - Head dim 96 (phi-3-vision) runs in the D = 128 layout: the tensor
-//       maps carry the true inner extent 96, so TMA fills columns 96-127
-//       of the second 64-column box with zeros; Q K^T over them adds 0,
-//       P V gives 0 there, and the epilogue stores only the 96 columns.
-//       That is 4/3 of the needed MMA work; a native 96-column layout
-//       (a 64-byte swizzle for the second box, wgmma n96 for P V) is not
-//       done.
+//     Per head dim (kernel-alone times from scripts/bench_flash.py on an
+//     NVIDIA H100 80GB HBM3 at 700 W, beside F.scaled_dot_product_attention
+//     in the same call; PERF.md has every run):
+//     - D 128 (qwen3, the dense archs, grok-1): two consumer warpgroups
+//       (232 registers; producer 40) on 128-row tiles, Q 32 KB + 2 x (K 32
+//       KB + V 32 KB) = 160 KB. One warpgroup's softmax overlaps the
+//       other's products: the two run out of step on the tensor cores with
+//       no barrier between them. 0.2408 ms against SDPA's 0.2490 at the
+//       prefill shape.
+//     - D 96 (phi-3-vision): three 32-column boxes a row, so Q K^T runs 6
+//       k-steps and P V one wgmma n96 a k-step, with no work on padding
+//       columns; three consumer warpgroups (160 registers; producer 32) on
+//       192-row tiles, Q 36 KB + 2 x (24 + 24) KB = 132 KB. Where causal
+//       masking leaves a warpgroup's rows no key of a K/V tile, it only
+//       frees the stage. 0.6449 ms against SDPA's 0.6716 at B 2, S 5,120,
+//       32 heads (in the D 128 layout, zero-filled past column 96: 0.7472).
+//     - D 64 (granite-moe, seamless): three consumer warpgroups on 192-row
+//       tiles, Q 24 KB + 2 x (16 + 16) KB = 88 KB. A warpgroup issues
+//       Q K_j^T together with P_{j-1} V_{j-1}, in turns that named barriers
+//       pass round the warpgroups, and runs tile j's exponentials while its
+//       own and the others' products run. 0.1631 ms against SDPA's 0.1772
+//       at seamless's encoder (B 2, S 3,072, 16 heads, full; the D 128
+//       design 0.1799). With softcap (no model at D 64 has one) it spills
+//       144 bytes.
 //   * f32 (exact to f32 rounding, for tests at f32; wgmma has no exact
 //     f32): one CTA of 4 warps per (batch*head, 64-row q tile); the tiles
 //     are staged in shared memory and both products are plain FMA loops.
 //
 // Measured on the H100 and left out, being slower (PERF.md has the times):
-// issuing Q K_j^T ahead of P_{j-1} V_{j-1} inside a warpgroup, so that its
-// own exponentials overlap its P V product; making the two consumer
-// warpgroups take turns through named barriers (ping-pong); one CTA per
-// tile instead of the persistent grid. Not done: packing the G q heads of
-// one kv head into one CTA, skipping the half of a diagonal tile that the
-// first warpgroup's rows mask whole, a TMA store of the output.
+// at D 128, issuing Q K_j^T ahead of P_{j-1} V_{j-1} with no turns, turns
+// without it (ping-pong), one CTA per tile instead of the persistent grid;
+// at D 64, the same overlap with no turns (at two and three warpgroups),
+// turns at two warpgroups, 3 and 4 K/V stages, and 2 of every 8 ex2 as a
+// cubic on the FMA pipe; at D 96, two warpgroups, turns (which spill at
+// three warpgroups), and 3 K/V stages. Not done: turns at D 128 (measured
+// 3-4 % faster, 0.2321 ms at the prefill shape), packing the G q heads of
+// one kv head into one CTA, a TMA store of the output.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,19 +121,45 @@ __device__ __forceinline__ float masked_score(float s, float scale, float softca
 // ======================================================= bf16: Hopper
 using bf16 = __nv_bfloat16;
 
-constexpr int HBQ = 128;           // q rows per CTA: two consumer warpgroups of 64
 constexpr int HBK = 128;           // keys per K/V stage
 constexpr int STAGES = 2;          // K/V ring depth
-constexpr int HTHREADS = 3 * 128;  // producer + two consumer warpgroups
-constexpr int BOX_COLS = 64;       // bf16 columns of one box: the 128-byte swizzle span
-constexpr int ROW_BYTES = 128;     // one swizzled box row
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The design each head dim ships: WG consumer warpgroups of 64 q rows
+// share a q tile. With PINGPONG a warpgroup issues Q K_j^T and
+// P_{j-1} V_{j-1} together, in turns with the other warpgroups, and runs
+// tile j's softmax while its own P V and the others' products are on the
+// tensor cores.
+template <int WG_, bool PINGPONG_>
+struct Knobs {
+  static constexpr int WG = WG_;
+  static constexpr bool PINGPONG = PINGPONG_;
+};
+template <int D>
+struct Design;
+template <>
+struct Design<64> : Knobs<3, true> {};
+template <>
+struct Design<96> : Knobs<3, false> {};
+template <>
+struct Design<128> : Knobs<2, false> {};
 
 template <int D>
 struct HopperLayout {
-  static constexpr int BOXES = D / BOX_COLS;          // boxes per tile row
-  static constexpr int Q_BOX = HBQ * ROW_BYTES;       // bytes of one box of the Q tile
-  static constexpr int KV_BOX = HBK * ROW_BYTES;      // ... of a K or V stage
+  static constexpr int WG = Design<D>::WG;
+  static constexpr int BQ = 64 * WG;              // q rows per tile
+  static constexpr int THREADS = 128 * (WG + 1);  // producer + consumer warpgroups
+  // registers a thread (setmaxnreg) of the consumers and of the producer
+  static constexpr int REGS = WG == 2 ? 232 : 160;
+  static constexpr int PREGS = WG == 2 ? 40 : 32;
+  // A box is 64 columns, one 128-byte row under the 128-byte swizzle,
+  // where 64 divides D; else 32 columns under the 64-byte swizzle.
+  static constexpr int BOX_COLS = D % 64 == 0 ? 64 : 32;
+  static constexpr int ROW = 2 * BOX_COLS;             // bytes of one swizzled box row
+  static constexpr int SWIZZLE = ROW == 128 ? 1 : 2;   // the wgmma descriptor's layout type
+  static constexpr int BOXES = D / BOX_COLS;           // boxes per tile row
+  static constexpr int Q_BOX = BQ * ROW;               // bytes of one box of the Q tile
+  static constexpr int KV_BOX = HBK * ROW;             // ... of a K or V stage
   static constexpr int Q = 0;
   static constexpr int K = Q + BOXES * Q_BOX;
   static constexpr int V = K + STAGES * BOXES * KV_BOX;
@@ -167,22 +213,32 @@ __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.alig
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+// returns once at most N committed groups are still running
+template <int N>
 __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// pins an accumulator's registers at this point: no read moves above a
-// wait, no write below an issue
+// pins registers at this point: no read moves above a wait, no write
+// below an issue
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(r[i][c])::"memory");
+}
 
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), swizzle mode 1
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), layout type SWIZZLE (1: 128-byte, 2: 64-byte)
+template <int SWIZZLE>
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)SWIZZLE << 62);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -241,6 +297,25 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 96) += A (64 x 16, registers) . B (16 x 96, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16\n{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "},\n"
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -258,32 +333,38 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 }
 
 // S = Q K^T over D: D/16 k-steps; a k-step is 32 bytes along a swizzled
-// 128-byte row, and the next box starts at the next 64 columns
+// box row, and the next box starts at the next BOX_COLS columns
 template <int D>
 __device__ __forceinline__ void qk_issue(float (&s)[64], const unsigned char* q,
                                          const unsigned char* k) {
   using LY = HopperLayout<D>;
+  constexpr int STEPS = LY::BOX_COLS / 16;  // k-steps per box
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = (kk % 4) * 32;
-    const uint64_t da = smem_desc(q + (kk / 4) * LY::Q_BOX + off, 16, 8 * ROW_BYTES);
-    const uint64_t db = smem_desc(k + (kk / 4) * LY::KV_BOX + off, 16, 8 * ROW_BYTES);
+    const int off = (kk % STEPS) * 32;
+    const uint64_t da =
+        smem_desc<LY::SWIZZLE>(q + (kk / STEPS) * LY::Q_BOX + off, 16, 8 * LY::ROW);
+    const uint64_t db =
+        smem_desc<LY::SWIZZLE>(k + (kk / STEPS) * LY::KV_BOX + off, 16, 8 * LY::ROW);
     wgmma_ss_n128(s, da, db, kk > 0);
   }
 }
 
-// O += P V over the stage's 128 keys: V is MN-major (rows are keys, D is
-// contiguous); a k-step is 16 key rows, the leading offset steps to the
-// next 64 columns of D, the stride offset to the next 8 keys
+// O += P V over the stage's 128 keys, one wgmma of n = D a k-step: V is
+// MN-major (rows are keys, D is contiguous); a k-step is 16 key rows, the
+// leading offset steps to the next box of D, the stride offset to the
+// next 8 keys
 template <int D>
 __device__ __forceinline__ void pv_issue(float (&o)[D / 2], const uint32_t (&p)[HBK / 16][4],
                                          const unsigned char* v) {
   using LY = HopperLayout<D>;
 #pragma unroll
   for (int kk = 0; kk < HBK / 16; ++kk) {
-    const uint64_t db = smem_desc(v + kk * 16 * ROW_BYTES, LY::KV_BOX, 8 * ROW_BYTES);
+    const uint64_t db = smem_desc<LY::SWIZZLE>(v + kk * 16 * LY::ROW, LY::KV_BOX, 8 * LY::ROW);
     if constexpr (D == 128)
       wgmma_rs_n128(o, p[kk], db);
+    else if constexpr (D == 96)
+      wgmma_rs_n96(o, p[kk], db);
     else
       wgmma_rs_n64(o, p[kk], db);
   }
@@ -365,6 +446,17 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
   for (int i = 0; i < N; ++i) o[i] *= corr[(i >> 1) & 1];
 }
 
+// Turns on the tensor cores (PINGPONG): named barrier 1 + w is warpgroup
+// w's; it waits there for its turn and then arrives at the next one's.
+template <int WG>
+__device__ __forceinline__ void take_turn(int w) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
+}
+template <int WG>
+__device__ __forceinline__ void pass_turn(int w) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (w + 1) % WG) : "memory");
+}
+
 struct Barriers {
   uint64_t* q_full;
   uint64_t* q_empty;
@@ -374,13 +466,15 @@ struct Barriers {
   uint64_t* v_empty;
 };
 
-// The CTA's work list. Tiles are numbered heaviest first (causal q tiles
-// from the last; within one, every (batch, head)); CTA c takes tiles
-// r * gridDim.x + c in even rounds r and r * gridDim.x + gridDim.x - 1 - c
-// in odd ones, a snake that evens out the causal tiles' sizes.
+// The CTA's work list. Tiles of BQ q rows are numbered heaviest first
+// (causal q tiles from the last; within one, every (batch, head)); CTA c
+// takes tiles r * gridDim.x + c in even rounds r and
+// r * gridDim.x + gridDim.x - 1 - c in odd ones, a snake that evens out
+// the causal tiles' sizes.
 struct Tile {
   int h, b, q0, nkt;
 };
+template <int BQ>
 struct Work {
   int tiles, nqt, H, B, Sk, causal;
 
@@ -395,8 +489,8 @@ struct Work {
     Tile t;
     t.h = bh % H;
     t.b = bh / H;
-    t.q0 = (nqt - 1 - i / (H * B)) * HBQ;
-    const int kv_end = causal ? min(Sk, t.q0 + HBQ) : Sk;
+    t.q0 = (nqt - 1 - i / (H * B)) * BQ;
+    const int kv_end = causal ? min(Sk, t.q0 + BQ) : Sk;
     t.nkt = (kv_end + HBK - 1) / HBK;
     return t;
   }
@@ -405,16 +499,16 @@ struct Work {
 template <int D>
 __device__ __forceinline__ void produce(const CUtensorMap* qm, const CUtensorMap* km,
                                         const CUtensorMap* vm, unsigned char* smem, Barriers br,
-                                        Work wk, int G) {
+                                        Work<HopperLayout<D>::BQ> wk, int G) {
   using LY = HopperLayout<D>;
   int j = 0;  // K/V tiles loaded so far, over all of the CTA's q tiles
   for (int r = 0; wk.has(r); ++r) {
     const Tile t = wk.at(r);
     if (r > 0) mbar_wait(br.q_empty, (r - 1) & 1);  // the last Q K^T of tile r-1 is done
-    mbar_expect_tx(br.q_full, HBQ * D * sizeof(bf16));
+    mbar_expect_tx(br.q_full, LY::BQ * D * sizeof(bf16));
 #pragma unroll
     for (int c = 0; c < LY::BOXES; ++c)
-      tma_load(smem + LY::Q + c * LY::Q_BOX, qm, br.q_full, c * BOX_COLS, t.h, t.q0, t.b);
+      tma_load(smem + LY::Q + c * LY::Q_BOX, qm, br.q_full, c * LY::BOX_COLS, t.h, t.q0, t.b);
     for (int jj = 0; jj < t.nkt; ++jj, ++j) {
       const int st = j % STAGES;
       const int ph = (j / STAGES) & 1;
@@ -423,25 +517,28 @@ __device__ __forceinline__ void produce(const CUtensorMap* qm, const CUtensorMap
 #pragma unroll
       for (int c = 0; c < LY::BOXES; ++c)
         tma_load(smem + LY::K + (st * LY::BOXES + c) * LY::KV_BOX, km, br.k_full + st,
-                 c * BOX_COLS, t.h / G, jj * HBK, t.b);
+                 c * LY::BOX_COLS, t.h / G, jj * HBK, t.b);
       mbar_wait(br.v_empty + st, ph ^ 1);
       mbar_expect_tx(br.v_full + st, HBK * D * sizeof(bf16));
 #pragma unroll
       for (int c = 0; c < LY::BOXES; ++c)
         tma_load(smem + LY::V + (st * LY::BOXES + c) * LY::KV_BOX, vm, br.v_full + st,
-                 c * BOX_COLS, t.h / G, jj * HBK, t.b);
+                 c * LY::BOX_COLS, t.h / G, jj * HBK, t.b);
     }
   }
 }
 
-// D: the layout's columns (64 or 128); DO <= D: the head dim, the columns
-// the epilogue stores
-template <int D, int DO, bool CAP>
+template <int D, bool CAP>
 __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* __restrict__ o,
-                                        Strides os, Work wk, int Sq, float scale,
-                                        float softcap) {
+                                        Strides os, Work<HopperLayout<D>::BQ> wk, int Sq,
+                                        float scale, float softcap) {
   using LY = HopperLayout<D>;
-  const int w = threadIdx.x / 128 - 1;  // consumer warpgroup 0 or 1
+  using DS = Design<D>;
+  // A warpgroup skips the K/V tiles whose keys are all masked for its
+  // rows; there are such tiles only where a q tile spans more rows than a
+  // K/V tile. Turns need every warpgroup to take as many, so not there.
+  constexpr bool SKIP = LY::BQ > HBK && !DS::PINGPONG;
+  const int w = threadIdx.x / 128 - 1;  // consumer warpgroup 0 .. WG-1
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -449,7 +546,12 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
   const bool lead = lane == 0;  // arrives for its warp
   const int Sk = wk.Sk;
   const int causal = wk.causal;
-  const unsigned char* qs = smem + LY::Q + w * 64 * ROW_BYTES;
+  const unsigned char* qs = smem + LY::Q + w * 64 * LY::ROW;
+  auto k_stage = [&](int st) { return smem + LY::K + st * LY::BOXES * LY::KV_BOX; };
+  auto v_stage = [&](int st) { return smem + LY::V + st * LY::BOXES * LY::KV_BOX; };
+
+  if constexpr (DS::PINGPONG)
+    if (w == LY::WG - 1) pass_turn<LY::WG>(w);  // warpgroup 0 goes first
 
   float acc[D / 2];
   float s[64];
@@ -460,45 +562,128 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
     const Tile t = wk.at(r);
     const int wrow0 = t.q0 + 64 * w;                    // this warpgroup's first q row
     const int row_a = wrow0 + 16 * warp + (lane >> 2);  // this thread's two rows
+    int n = t.nkt;  // the K/V tiles this warpgroup computes on
+    if constexpr (SKIP)
+      n = wrow0 >= Sq ? 0 : min(n, ((causal ? min(Sk, wrow0 + 64) : Sk) + HBK - 1) / HBK);
     Softmax<CAP> sm;
     sm.softcap = softcap;
     sm.cap_in = CAP ? scale / softcap : 0.f;
     sm.mul = CAP ? LOG2E : scale * LOG2E;
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-
-    mbar_wait(br.q_full, r & 1);
-    for (int jj = 0; jj < t.nkt; ++jj, ++j) {
-      const int st = j % STAGES;
-      const int ph = (j / STAGES) & 1;
-      const unsigned char* ks = smem + LY::K + st * LY::BOXES * LY::KV_BOX;
-      const unsigned char* vs = smem + LY::V + st * LY::BOXES * LY::KV_BOX;
-      mbar_wait(br.k_full + st, ph);
-      wg_fence();
-      qk_issue<D>(s, qs, ks);
-      wg_commit();
-      wg_wait();
-      fence_regs(s);
-      // S has landed: free K, and Q after the tile's last K/V tile
-      if (lead) {
-        mbar_arrive(br.k_empty + st);
-        if (jj == t.nkt - 1) mbar_arrive(br.q_empty);
-      }
+    auto softmax = [&](int jj) {
       const int k0 = jj * HBK;
       if (k0 + HBK > Sk || (causal && k0 + HBK - 1 > wrow0))
         sm.template tile<true>(s, corr, k0, row_a, t4, Sk, causal);
       else
         sm.template tile<false>(s, corr, k0, row_a, t4, Sk, causal);
-      rescale(acc, corr);
-      to_p(p, s);
+    };
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(br.q_full, r & 1);
+    if constexpr (SKIP)
+      if (n == 0 && lead) mbar_arrive(br.q_empty);
+    if constexpr (!DS::PINGPONG) {
+      for (int jj = 0; jj < n; ++jj, ++j) {
+        const int st = j % STAGES;
+        const int ph = (j / STAGES) & 1;
+        mbar_wait(br.k_full + st, ph);
+        wg_fence();
+        qk_issue<D>(s, qs, k_stage(st));
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(s);
+        // S has landed: free K, and Q after this warpgroup's last K/V tile
+        if (lead) {
+          mbar_arrive(br.k_empty + st);
+          if (jj == n - 1) mbar_arrive(br.q_empty);
+        }
+        softmax(jj);
+        rescale(acc, corr);
+        to_p(p, s);
+        fence_regs(acc);
+        mbar_wait(br.v_full + st, ph);
+        wg_fence();
+        pv_issue<D>(acc, p, v_stage(st));
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+        if (lead) mbar_arrive(br.v_empty + st);
+      }
+    } else if (n > 0) {
+      // S_0, then for each later tile: issue Q K_jj^T and P_{jj-1} V_{jj-1}
+      // in this warpgroup's turn, run tile jj's softmax while the products
+      // run, rescale after them
+      {
+        const int st = j % STAGES;
+        mbar_wait(br.k_full + st, (j / STAGES) & 1);
+        take_turn<LY::WG>(w);
+        wg_fence();
+        qk_issue<D>(s, qs, k_stage(st));
+        wg_commit();
+        pass_turn<LY::WG>(w);
+        wg_wait<0>();
+        fence_regs(s);
+        if (lead) {
+          mbar_arrive(br.k_empty + st);
+          if (n == 1) mbar_arrive(br.q_empty);
+        }
+        softmax(0);
+        to_p(p, s);
+      }
+      for (int jj = 1; jj < n; ++jj) {
+        const int jp = j + jj - 1;  // the tile whose P V runs now
+        const int st = (jp + 1) % STAGES;
+        const int stp = jp % STAGES;
+        mbar_wait(br.k_full + st, ((jp + 1) / STAGES) & 1);
+        mbar_wait(br.v_full + stp, (jp / STAGES) & 1);
+        fence_regs(acc);
+        fence_regs(p);
+        take_turn<LY::WG>(w);
+        wg_fence();
+        qk_issue<D>(s, qs, k_stage(st));
+        wg_commit();
+        pv_issue<D>(acc, p, v_stage(stp));
+        wg_commit();
+        pass_turn<LY::WG>(w);
+        wg_wait<1>();
+        fence_regs(s);
+        if (lead) {
+          mbar_arrive(br.k_empty + st);
+          if (jj == n - 1) mbar_arrive(br.q_empty);
+        }
+        softmax(jj);
+        wg_wait<0>();
+        fence_regs(acc);
+        fence_regs(p);
+        if (lead) mbar_arrive(br.v_empty + stp);
+        rescale(acc, corr);
+        to_p(p, s);
+      }
+      const int jl = j + n - 1;
+      const int stl = jl % STAGES;
+      mbar_wait(br.v_full + stl, (jl / STAGES) & 1);
       fence_regs(acc);
-      mbar_wait(br.v_full + st, ph);
+      fence_regs(p);
+      take_turn<LY::WG>(w);
       wg_fence();
-      pv_issue<D>(acc, p, vs);
+      pv_issue<D>(acc, p, v_stage(stl));
       wg_commit();
-      wg_wait();
+      pass_turn<LY::WG>(w);
+      wg_wait<0>();
       fence_regs(acc);
-      if (lead) mbar_arrive(br.v_empty + st);
+      if (lead) mbar_arrive(br.v_empty + stl);
+      j += n;
+    }
+    if constexpr (SKIP) {
+      // the tile's remaining K/V stages: this warpgroup only frees them
+      for (int jj = n; jj < t.nkt; ++jj, ++j) {
+        const int st = j % STAGES;
+        const int ph = (j / STAGES) & 1;
+        mbar_wait(br.k_full + st, ph);
+        if (lead) mbar_arrive(br.k_empty + st);
+        mbar_wait(br.v_full + st, ph);
+        if (lead) mbar_arrive(br.v_empty + st);
+      }
     }
 
     float inv[2];
@@ -515,21 +700,22 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
       if (row >= Sq) continue;
       bf16* orow = o + t.b * os.b + (long long)row * os.s + t.h * os.h + 2 * t4;
 #pragma unroll
-      for (int n = 0; n < DO / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-            pack_bf16(acc[4 * n + 2 * rr] * inv[rr], acc[4 * n + 2 * rr + 1] * inv[rr]);
+      for (int n8 = 0; n8 < D / 8; ++n8)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n8) =
+            pack_bf16(acc[4 * n8 + 2 * rr] * inv[rr], acc[4 * n8 + 2 * rr + 1] * inv[rr]);
     }
   }
 }
 
-template <int D, int DO, bool CAP>
-__global__ void __launch_bounds__(HTHREADS, 1)
+template <int D, bool CAP>
+__global__ void __launch_bounds__(HopperLayout<D>::THREADS, 1)
     fa_fwd_hopper(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                   const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o, Strides os,
-                  Work wk, int G, int Sq, float scale, float softcap) {
+                  Work<HopperLayout<D>::BQ> wk, int G, int Sq, float scale, float softcap) {
   using LY = HopperLayout<D>;
   extern __shared__ unsigned char smem_raw[];
-  // the 128-byte swizzle repeats every 1 KB: tiles start on 1 KB boundaries
+  // the 128-byte swizzle repeats every 1 KB (the 64-byte one every 512
+  // bytes): tiles start on 1 KB boundaries
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + LY::BAR);
   const Barriers br{bars, bars + 1, bars + 2, bars + 2 + STAGES, bars + 2 + 2 * STAGES,
@@ -537,23 +723,23 @@ __global__ void __launch_bounds__(HTHREADS, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(br.q_full, 1);
-    mbar_init(br.q_empty, 8);  // one arrive per consumer warp
+    mbar_init(br.q_empty, 4 * LY::WG);  // one arrive per consumer warp
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(br.k_full + st, 1);
       mbar_init(br.v_full + st, 1);
-      mbar_init(br.k_empty + st, 8);
-      mbar_init(br.v_empty + st, 8);
+      mbar_init(br.k_empty + st, 4 * LY::WG);
+      mbar_init(br.v_empty + st, 4 * LY::WG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {  // producer: one branch to the end, no reconvergence
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LY::PREGS));
     if (threadIdx.x == 0) produce<D>(&qm, &km, &vm, smem, br, wk, G);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<D, DO, CAP>(smem, br, o, os, wk, Sq, scale, softcap);
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(LY::REGS));
+    consume<D, CAP>(smem, br, o, os, wk, Sq, scale, softcap);
   }
 }
 
@@ -578,26 +764,29 @@ EncodeTiled encode_tiled() {
 
 // rank-4 map (D, heads, S, batch) over a bf16 tensor with element strides
 // st (the wrapper gives a dim of size 1, never stepped, 8: 16 bytes, as TMA
-// needs); box (64, 1, rows, 1). A box's columns at or past D come in as
-// zeros, and still count toward the barrier's transaction bytes.
-bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* base, int D, int heads, int S,
-                int B, Strides st, int rows) {
+// needs); box (LY::BOX_COLS, 1, rows, 1) under LY's swizzle. Rows past S
+// come in as zeros, and still count toward the barrier's transaction bytes.
+template <int D>
+bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* base, int heads, int S, int B,
+                Strides st, int rows) {
+  using LY = HopperLayout<D>;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st.h * sizeof(bf16), (cuuint64_t)st.s * sizeof(bf16),
                                  (cuuint64_t)st.b * sizeof(bf16)};
-  const cuuint32_t box[4] = {(cuuint32_t)BOX_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)LY::BOX_COLS, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             LY::SWIZZLE == 1 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int DO, bool CAP>
+template <int D, bool CAP>
 int launch_tiles(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
-                  Strides os, Work wk, int G, int Sq, float scale, float softcap,
-                  cudaStream_t stream) {
-  auto kern = fa_fwd_hopper<D, DO, CAP>;
+                 Strides os, Work<HopperLayout<D>::BQ> wk, int G, int Sq, float scale,
+                 float softcap, cudaStream_t stream) {
+  auto kern = fa_fwd_hopper<D, CAP>;
   const size_t bytes = HopperLayout<D>::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -608,31 +797,30 @@ int launch_tiles(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
   const int grid = wk.tiles < sms ? wk.tiles : sms;
-  kern<<<grid, HTHREADS, bytes, stream>>>(qm, km, vm, static_cast<bf16*>(o), os, wk, G, Sq,
-                                          scale, softcap);
+  kern<<<grid, HopperLayout<D>::THREADS, bytes, stream>>>(qm, km, vm, static_cast<bf16*>(o), os,
+                                                          wk, G, Sq, scale, softcap);
   return (int)cudaGetLastError();
 }
 
-// D: the layout's columns; DO: the head dim (the tensors' last extent)
-template <int D, int DO>
+// D: the head dim (the tensors' last extent)
+template <int D>
 int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
                   int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
                   float softcap, int causal, cudaStream_t stream) {
-  const int nqt = (Sq + HBQ - 1) / HBQ;
+  constexpr int BQ_ = HopperLayout<D>::BQ;
+  const int nqt = (Sq + BQ_ - 1) / BQ_;
   if ((long long)nqt * H * B > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  if (!tensor_map(enc, &qm, q, DO, H, Sq, B, qs, HBQ) ||
-      !tensor_map(enc, &km, k, DO, KVH, Sk, B, ks, HBK) ||
-      !tensor_map(enc, &vm, v, DO, KVH, Sk, B, vs, HBK))
+  if (!tensor_map<D>(enc, &qm, q, H, Sq, B, qs, BQ_) ||
+      !tensor_map<D>(enc, &km, k, KVH, Sk, B, ks, HBK) ||
+      !tensor_map<D>(enc, &vm, v, KVH, Sk, B, vs, HBK))
     return (int)cudaErrorInvalidValue;
-  const Work wk{nqt * H * B, nqt, H, B, Sk, causal};
+  const Work<BQ_> wk{nqt * H * B, nqt, H, B, Sk, causal};
   if (softcap > 0.f)
-    return launch_tiles<D, DO, true>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap,
-                                     stream);
-  return launch_tiles<D, DO, false>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap,
-                                    stream);
+    return launch_tiles<D, true>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap, stream);
+  return launch_tiles<D, false>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap, stream);
 }
 
 // ======================================================= f32: shared memory
@@ -821,9 +1009,9 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
     return launch<float>(fa_fwd_f32<96>, F32Layout<96>::BYTES, FA_ARGS);
   if (dtype == 0 && D == 128)
     return launch<float>(fa_fwd_f32<128>, F32Layout<128>::BYTES, FA_ARGS);
-  if (dtype == 1 && D == 64) return launch_hopper<64, 64>(FA_ARGS);
-  if (dtype == 1 && D == 96) return launch_hopper<128, 96>(FA_ARGS);
-  if (dtype == 1 && D == 128) return launch_hopper<128, 128>(FA_ARGS);
+  if (dtype == 1 && D == 64) return launch_hopper<64>(FA_ARGS);
+  if (dtype == 1 && D == 96) return launch_hopper<96>(FA_ARGS);
+  if (dtype == 1 && D == 128) return launch_hopper<128>(FA_ARGS);
 #undef FA_ARGS
   return (int)cudaErrorInvalidValue;
 }

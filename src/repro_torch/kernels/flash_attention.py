@@ -14,8 +14,8 @@ builds over that layout from these strides (rank 4: D, heads, S, B); the
 f32 kernel walks the same strides with plain loads. A dim of size 1 is
 never stepped, and is given a stride of 16 bytes, as TMA needs.
 
-Head dims 64, 96 and 128 are taken; the bf16 kernel runs 96 in its
-128-column layout, the columns past 96 zero-filled by TMA (no copy here).
+Head dims 64, 96 and 128 are taken; the bf16 kernel loads a row of 96 as
+three 32-column boxes, with no padding columns and no copy here.
 
 A CPU tensor takes the plain version (``ref.flash_attention_ref``); a CUDA
 tensor launches the kernel or raises. The kernel is a forward only, as the

@@ -194,9 +194,10 @@ def test_flash_tensor_map_geometry(t, strides):
 
 
 def test_flash_tensor_map_geometry_head_dim_96():
-    """head_dim 96: rows of 192 bytes, 16-byte multiples; the kernel maps
-    the true extent 96 and TMA zero-fills the second box's last 32
-    columns, so the wrapper walks the model layout in place, no copy."""
+    """head_dim 96: rows of 192 bytes, 16-byte multiples; the bf16 kernel
+    loads them as three 32-column boxes under the 64-byte swizzle, a
+    native 96-column layout with no padding columns, so the wrapper walks
+    the model layout in place, no copy."""
     q, kv = _bf16((2, 300, 32, 1, 96)), _bf16((2, 300, 32, 96))
     assert fa._strides("q", q) == (300 * 3072, 3072, 96)
     assert fa._strides("k", kv) == (300 * 3072, 3072, 96)
@@ -416,6 +417,19 @@ def test_flash_kernel_matches_plain_on_card(S, KV, G, D, dtype, causal, softcap)
     (333, 333, 2, 2, 64, False, 0.0),
     (333, 333, 2, 2, 128, False, 0.0),
     (256, 256, 2, 4, 128, True, 30.0),    # softcap in bf16
+    # D 96: three 32-column boxes under the 64-byte swizzle
+    (77, 77, 2, 1, 96, True, 0.0),        # shorter than one tile
+    (1000, 1000, 2, 2, 96, True, 0.0),    # ragged last tile, G = 2
+    (37, 150, 2, 2, 96, True, 0.0),       # Sq < Sk
+    (150, 37, 2, 4, 96, True, 0.0),       # Sq > Sk, G = 4
+    (1000, 1000, 2, 2, 96, False, 0.0),   # non-causal, ragged
+    (300, 300, 1, 4, 96, True, 0.0),      # KV = 1, G = 4
+    # D 64: 192-row q tiles of three consumer warpgroups
+    (191, 191, 2, 2, 64, True, 0.0),      # one row short of a tile
+    (193, 193, 2, 2, 64, True, 0.0),      # one row into the second tile
+    (385, 385, 2, 3, 64, True, 0.0),      # one row into the third
+    (385, 385, 2, 3, 64, False, 0.0),
+    (3072, 3072, 16, 1, 64, False, 0.0),  # seamless's encoder at full width
 ])
 def test_flash_bf16_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap):
     _need_cuda()
