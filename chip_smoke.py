@@ -354,11 +354,11 @@ def phase_build():
 
 
 # ------------------------------------------------------------ phase 3
-def _flash_inputs(B, S, KV, G, D, dtype, seed):
+def _flash_inputs(B, S, KV, G, D, dtype, seed, qscale=1.0):
     import torch
 
     g = torch.Generator("cuda").manual_seed(seed)
-    q = torch.randn((B, S, KV, G, D), generator=g, device="cuda").to(dtype)
+    q = (torch.randn((B, S, KV, G, D), generator=g, device="cuda") * qscale).to(dtype)
     k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dtype)
     v = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dtype)
     return q, k, v
@@ -416,7 +416,7 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 versions exact
     torch.backends.cudnn.allow_tf32 = False
     results = {}
-    cases = [  # name, B, S, KV, G, D, dtype, causal, softcap
+    cases = [  # name, B, S, KV, G, D, dtype, causal, softcap[, q scale]
         ("prefill_bf16", BATCH, PROMPT, 8, 2, 128, torch.bfloat16, True, 0.0),
         ("small_f32", 2, 256, 2, 2, 64, torch.float32, True, 0.0),
         ("softcap_f32", 1, 256, 2, 4, 128, torch.float32, True, 30.0),
@@ -449,11 +449,16 @@ def phase_kernels():
         ("d96_ragged_noncausal_g2_bf16", BATCH, 1000, 2, 2, 96, torch.bfloat16, False, 0.0),
         ("d96_kv1_g4_bf16", BATCH, 777, 1, 4, 96, torch.bfloat16, True, 0.0),
         ("d64_s193_g3_bf16", BATCH, 193, 8, 3, 64, torch.bfloat16, True, 0.0),
+        # grok-1's shape with q scaled by 8, which drives the scores past the
+        # softcap (|s| up to about 44): what the cap's tanh is held to
+        ("grok_g6_softcap_q8_bf16", BATCH, PROMPT, 8, 6, 128, torch.bfloat16, True, 30.0,
+         8.0),
     ]
-    check_only = {"d96_ragged_noncausal_g2_bf16", "d96_kv1_g4_bf16", "d64_s193_g3_bf16"}
+    check_only = {"d96_ragged_noncausal_g2_bf16", "d96_kv1_g4_bf16", "d64_s193_g3_bf16",
+                  "grok_g6_softcap_q8_bf16"}
 
-    def flash_case(name, B, S, KV, G, D, dt, causal, cap):
-        q, k, v = _flash_inputs(B, S, KV, G, D, dt, seed=len(results))
+    def flash_case(name, B, S, KV, G, D, dt, causal, cap, qscale=1.0):
+        q, k, v = _flash_inputs(B, S, KV, G, D, dt, seed=len(results), qscale=qscale)
         out = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
         # against the plain version in f32 on the same values
         errs, ok = ref.flash_attention_check(out, q, k, v, causal=causal, softcap=cap)
@@ -461,7 +466,7 @@ def phase_kernels():
                if dt == torch.float32 else
                {"rel": ref.FLASH_BF16_REL_TOL, "row_rel": ref.FLASH_BF16_ROW_REL_TOL})
         rec = {"shape": [B, S, KV, G, D], "dtype": str(dt), "causal": causal,
-               "softcap": cap, **errs, "tol": tol}
+               "softcap": cap, "qscale": qscale, **errs, "tol": tol}
         emit("flash_check", case=name, **rec)
         check(ok, f"flash {name}: errors {errs} beyond {tol}")
         if name in check_only:

@@ -51,17 +51,34 @@
 //       by halving trees, not serial chains), with scale * log2(e) folded
 //       into one FFMA before ex2. Only tiles that cross the diagonal or the
 //       ragged end of Sk are masked; the others run a mask-free body.
+//     - Softcap: the tile takes t = tanh(s * scale / softcap) with one
+//       tanh.approx.f32 (a MUFU operation) and softcap * log2(e) goes into
+//       the FFMA before ex2 (the row max commutes with the positive factor;
+//       the mask's -1e30 times 43 stays finite): two MUFU operations a
+//       score, as many cycles as the tile's products take at D 128, so the
+//       capped tile runs near the products' pace. tanh.approx's relative
+//       error (at most 2^-10.987) is held to the same tolerances as the
+//       rest: with q scaled by 8 (|s| up to about 44, past the cap) at
+//       grok-1's shape, rel 1.74e-3 and row 3.18e-3 against 1.73e-3 and
+//       3.16e-3 for the exact tanhf (scripts/bench_flash.py).
 //     - Epilogue: normalise in registers, write bf16 through the output's
-//       strides, rows past Sq skipped.
+//       strides, rows past Sq skipped; with TMA_STORE, into shared memory
+//       (stmatrix) and out with TMA.
 //     Per head dim (kernel-alone times from scripts/bench_flash.py on an
 //     NVIDIA H100 80GB HBM3 at 700 W, beside F.scaled_dot_product_attention
 //     in the same call; PERF.md has every run):
 //     - D 128 (qwen3, the dense archs, grok-1): two consumer warpgroups
 //       (232 registers; producer 40) on 128-row tiles, Q 32 KB + 2 x (K 32
-//       KB + V 32 KB) = 160 KB. One warpgroup's softmax overlaps the
-//       other's products: the two run out of step on the tensor cores with
-//       no barrier between them. 0.2408 ms against SDPA's 0.2490 at the
-//       prefill shape.
+//       KB + V 32 KB) + O 2 x 16 KB = 192 KB. In turns, as at D 64 below,
+//       and with a TMA store of the output. 0.2280 ms against SDPA's 0.2493
+//       at the prefill shape, 0.985x and 0.970x SDPA at the archs' G 4 and
+//       G 16 (the design before, with neither: 0.2412, 1.04x, 1.03x);
+//       grok-1's softcap 0.825 ms (1.337 with tanhf). Probes at the prefill
+//       shape, against the design without the TMA store: the global stores
+//       skipped 5.0 % faster (the TMA store took 2.6 % of it), K/V loaded
+//       once 3.5 % faster (so L2 -> shared memory traffic is a limit; 3
+//       stages are 0.2 % slower, so it is not latency), the masked body on
+//       every tile 9 % slower.
 //     - D 96 (phi-3-vision): three 32-column boxes a row, so Q K^T runs 6
 //       k-steps and P V one wgmma n96 a k-step, with no work on padding
 //       columns; three consumer warpgroups (160 registers; producer 32) on
@@ -76,20 +93,26 @@
 //       own and the others' products run. 0.1631 ms against SDPA's 0.1772
 //       at seamless's encoder (B 2, S 3,072, 16 heads, full; the D 128
 //       design 0.1799). With softcap (no model at D 64 has one) it spills
-//       144 bytes.
+//       188 bytes.
 //   * f32 (exact to f32 rounding, for tests at f32; wgmma has no exact
 //     f32): one CTA of 4 warps per (batch*head, 64-row q tile); the tiles
 //     are staged in shared memory and both products are plain FMA loops.
 //
 // Measured on the H100 and left out, being slower (PERF.md has the times):
 // at D 128, issuing Q K_j^T ahead of P_{j-1} V_{j-1} with no turns, turns
-// without it (ping-pong), one CTA per tile instead of the persistent grid;
-// at D 64, the same overlap with no turns (at two and three warpgroups),
-// turns at two warpgroups, 3 and 4 K/V stages, and 2 of every 8 ex2 as a
-// cubic on the FMA pipe; at D 96, two warpgroups, turns (which spill at
-// three warpgroups), and 3 K/V stages. Not done: turns at D 128 (measured
-// 3-4 % faster, 0.2321 ms at the prefill shape), packing the G q heads of
-// one kv head into one CTA, a TMA store of the output.
+// without it (ping-pong), one CTA per tile instead of the persistent grid,
+// 3 K/V stages, the causal diagonal tile cut to 64 keys for warpgroup 0
+// (a 64-key wgmma chosen at run time: every D 128 shape 35 % slower), and
+// with softcap: tanh as ex2 + rcp (two MUFU operations, 1.03 ms at grok-1's
+// shape), 2 or 4 of every 8 ex2 as a cubic on the FMA pipe (5 % slower),
+// and no turns (0.892 ms against 0.826 with the TMA store; without it, no
+// turns would be 1.4 % faster than this design, 0.815 ms, but D 128 keeps
+// one design with and without softcap); at D 64, the same overlap with no turns (at two and three
+// warpgroups), turns at two warpgroups, 3 and 4 K/V stages, and 2 of every
+// 8 ex2 as the cubic; at D 96, two warpgroups, turns (which spill at three
+// warpgroups), and 3 K/V stages. Not done: a 2-CTA cluster that multicasts
+// one K/V load to two q heads of one kv head (the K/V-loaded-once probe's
+// 3.5 %), packing the G q heads of one kv head into one CTA.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,11 +152,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 // share a q tile. With PINGPONG a warpgroup issues Q K_j^T and
 // P_{j-1} V_{j-1} together, in turns with the other warpgroups, and runs
 // tile j's softmax while its own P V and the others' products are on the
-// tensor cores.
-template <int WG_, bool PINGPONG_>
+// tensor cores. With TMA_STORE a warpgroup stages its 64 output rows in
+// shared memory and one thread stores them with TMA, so that the writes
+// run on while the next tile starts.
+template <int WG_, bool PINGPONG_, bool TMA_STORE_ = false>
 struct Knobs {
   static constexpr int WG = WG_;
   static constexpr bool PINGPONG = PINGPONG_;
+  static constexpr bool TMA_STORE = TMA_STORE_;
 };
 template <int D>
 struct Design;
@@ -142,7 +168,20 @@ struct Design<64> : Knobs<3, true> {};
 template <>
 struct Design<96> : Knobs<3, false> {};
 template <>
-struct Design<128> : Knobs<2, false> {};
+struct Design<128> : Knobs<2, true, true> {};
+
+// Timing probes, defined only by -D flags of scripts/bench_flash.py's
+// --also builds (never in a build the port loads): they compute a wrong
+// or an unchanged answer at another cost, to attribute the time.
+#ifndef PROBE_NO_STORE  // the epilogue's global stores skipped
+#define PROBE_NO_STORE 0
+#endif
+#ifndef PROBE_KV_ONCE  // K/V loaded into the first STAGES stages only
+#define PROBE_KV_ONCE 0
+#endif
+#ifndef PROBE_ALL_MASKED  // the masked softmax body on every tile
+#define PROBE_ALL_MASKED 0
+#endif
 
 template <int D>
 struct HopperLayout {
@@ -160,10 +199,14 @@ struct HopperLayout {
   static constexpr int BOXES = D / BOX_COLS;           // boxes per tile row
   static constexpr int Q_BOX = BQ * ROW;               // bytes of one box of the Q tile
   static constexpr int KV_BOX = HBK * ROW;             // ... of a K or V stage
+  static constexpr int O_BOX = 64 * ROW;               // ... of a warpgroup's output rows
+  static constexpr bool TMA_STORE = Design<D>::TMA_STORE;
+  static_assert(!TMA_STORE || ROW == 128, "the output's staging assumes the 128-byte swizzle");
   static constexpr int Q = 0;
   static constexpr int K = Q + BOXES * Q_BOX;
   static constexpr int V = K + STAGES * BOXES * KV_BOX;
-  static constexpr int BAR = V + STAGES * BOXES * KV_BOX;
+  static constexpr int O = V + STAGES * BOXES * KV_BOX;  // TMA_STORE: per warpgroup
+  static constexpr int BAR = O + (TMA_STORE ? WG * BOXES * O_BOX : 0);
   static constexpr int NBAR = 2 + 4 * STAGES;  // q full/empty, k/v full, k/v empty
   static constexpr size_t BYTES = BAR + 8 * NBAR + 1024;  // + slack to align the base to 1 KB
 };
@@ -209,6 +252,40 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// one box of shared memory -> a rank-4 tensor map; rows past the tensor's
+// end are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int col,
+                                          int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// returns once this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// returns once they have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// this thread's writes to shared memory, seen by the TMA (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// four 8x8 bf16 matrices: lanes 8m..8m+7 give matrix m's row addresses,
+// and each thread's register m holds its two values of matrix m
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -244,6 +321,13 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// one MUFU operation, relative error at most 2^-10.987 (PTX ISA)
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -380,13 +464,15 @@ __device__ __forceinline__ void tree(float (&a)[N], Op op) {
   }
 }
 
+// With softcap the tile holds tanh(s * scale / softcap), and softcap * log2 e
+// goes into mul: the row max commutes with the positive factor, and the
+// mask's -1e30 times it stays finite.
 template <bool CAP>
 struct Softmax {
   float m[2] = {NEG_INF, NEG_INF};  // running max of this thread's two rows
   float l[2] = {0.f, 0.f};          // this thread's partial row sums
-  float mul;                        // score -> log2 units
-  float cap_in;                     // scale / softcap
-  float softcap;
+  float mul;                        // score (CAP: its tanh) -> log2 units
+  float cap_in;                     // CAP: scale / softcap
 
   // scores -> unnormalised probabilities in place; returns in corr the
   // factors that rescale what was accumulated before this tile.
@@ -397,7 +483,7 @@ struct Softmax {
                                        int t4, int Sk, int causal) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
-      if (CAP) s[i] = softcap * tanhf(s[i] * cap_in);
+      if (CAP) s[i] = tanh_approx(s[i] * cap_in);
       if (MASK) {
         const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
         const int row = row_a + 8 * ((i >> 1) & 1);
@@ -456,6 +542,11 @@ template <int WG>
 __device__ __forceinline__ void pass_turn(int w) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (w + 1) % WG) : "memory");
 }
+// the 128 threads of consumer warpgroup w meet (named barrier 1 + WG + w)
+template <int WG>
+__device__ __forceinline__ void wg_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + WG + w) : "memory");
+}
 
 struct Barriers {
   uint64_t* q_full;
@@ -513,6 +604,12 @@ __device__ __forceinline__ void produce(const CUtensorMap* qm, const CUtensorMap
       const int st = j % STAGES;
       const int ph = (j / STAGES) & 1;
       mbar_wait(br.k_empty + st, ph ^ 1);  // the first round finds the stage free
+      if (PROBE_KV_ONCE && j >= STAGES) {
+        mbar_arrive(br.k_full + st);
+        mbar_wait(br.v_empty + st, ph ^ 1);
+        mbar_arrive(br.v_full + st);
+        continue;
+      }
       mbar_expect_tx(br.k_full + st, HBK * D * sizeof(bf16));
 #pragma unroll
       for (int c = 0; c < LY::BOXES; ++c)
@@ -530,14 +627,15 @@ __device__ __forceinline__ void produce(const CUtensorMap* qm, const CUtensorMap
 
 template <int D, bool CAP>
 __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* __restrict__ o,
-                                        Strides os, Work<HopperLayout<D>::BQ> wk, int Sq,
-                                        float scale, float softcap) {
+                                        const CUtensorMap* om, Strides os,
+                                        Work<HopperLayout<D>::BQ> wk, int Sq, float scale,
+                                        float softcap) {
   using LY = HopperLayout<D>;
-  using DS = Design<D>;
+  constexpr bool PINGPONG = Design<D>::PINGPONG;
   // A warpgroup skips the K/V tiles whose keys are all masked for its
   // rows; there are such tiles only where a q tile spans more rows than a
   // K/V tile. Turns need every warpgroup to take as many, so not there.
-  constexpr bool SKIP = LY::BQ > HBK && !DS::PINGPONG;
+  constexpr bool SKIP = LY::BQ > HBK && !PINGPONG;
   const int w = threadIdx.x / 128 - 1;  // consumer warpgroup 0 .. WG-1
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
@@ -550,7 +648,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
   auto k_stage = [&](int st) { return smem + LY::K + st * LY::BOXES * LY::KV_BOX; };
   auto v_stage = [&](int st) { return smem + LY::V + st * LY::BOXES * LY::KV_BOX; };
 
-  if constexpr (DS::PINGPONG)
+  if constexpr (PINGPONG)
     if (w == LY::WG - 1) pass_turn<LY::WG>(w);  // warpgroup 0 goes first
 
   float acc[D / 2];
@@ -566,12 +664,11 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
     if constexpr (SKIP)
       n = wrow0 >= Sq ? 0 : min(n, ((causal ? min(Sk, wrow0 + 64) : Sk) + HBK - 1) / HBK);
     Softmax<CAP> sm;
-    sm.softcap = softcap;
     sm.cap_in = CAP ? scale / softcap : 0.f;
-    sm.mul = CAP ? LOG2E : scale * LOG2E;
+    sm.mul = (CAP ? softcap : scale) * LOG2E;
     auto softmax = [&](int jj) {
       const int k0 = jj * HBK;
-      if (k0 + HBK > Sk || (causal && k0 + HBK - 1 > wrow0))
+      if (PROBE_ALL_MASKED || k0 + HBK > Sk || (causal && k0 + HBK - 1 > wrow0))
         sm.template tile<true>(s, corr, k0, row_a, t4, Sk, causal);
       else
         sm.template tile<false>(s, corr, k0, row_a, t4, Sk, causal);
@@ -582,7 +679,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
     mbar_wait(br.q_full, r & 1);
     if constexpr (SKIP)
       if (n == 0 && lead) mbar_arrive(br.q_empty);
-    if constexpr (!DS::PINGPONG) {
+    if constexpr (!PINGPONG) {
       for (int jj = 0; jj < n; ++jj, ++j) {
         const int st = j % STAGES;
         const int ph = (j / STAGES) & 1;
@@ -694,23 +791,57 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
       l += __shfl_xor_sync(FULL, l, 2);
       inv[rr] = 1.f / fmaxf(l, 1e-30f);
     }
+    if constexpr (LY::TMA_STORE) {
+      // bf16 O -> this warpgroup's boxes, under the 128-byte swizzle as the
+      // tensor map stores them (stmatrix: 8x8 blocks, conflict-free); then
+      // one thread stores the boxes, and waits for them only before it
+      // writes the boxes again
+      unsigned char* ob = smem + LY::O + w * LY::BOXES * LY::O_BOX;
+      if (tid == 0) bulk_wait_read();
+      wg_sync<LY::WG>(w);
+      const int mi = lane >> 3;                              // this lane's matrix of an x4
+      const int orow = 16 * warp + 8 * (mi & 1) + (lane & 7);  // its row of the 64
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int row = row_a + 8 * rr;
-      if (row >= Sq) continue;
-      bf16* orow = o + t.b * os.b + (long long)row * os.s + t.h * os.h + 2 * t4;
+      for (int c = 0; c < D / 16; ++c) {  // 8-column blocks 2c and 2c + 1
+        const int nb = 2 * c + (mi >> 1);
+        const uint32_t addr = smem_addr(ob + (nb / 8) * LY::O_BOX + orow * LY::ROW +
+                                        (((nb % 8) ^ (orow & 7)) << 4));
+        stmatrix_x4(addr, pack_bf16(acc[8 * c] * inv[0], acc[8 * c + 1] * inv[0]),
+                    pack_bf16(acc[8 * c + 2] * inv[1], acc[8 * c + 3] * inv[1]),
+                    pack_bf16(acc[8 * c + 4] * inv[0], acc[8 * c + 5] * inv[0]),
+                    pack_bf16(acc[8 * c + 6] * inv[1], acc[8 * c + 7] * inv[1]));
+      }
+      fence_async_smem();
+      wg_sync<LY::WG>(w);
+      if (tid == 0 && !PROBE_NO_STORE) {
 #pragma unroll
-      for (int n8 = 0; n8 < D / 8; ++n8)
-        *reinterpret_cast<uint32_t*>(orow + 8 * n8) =
-            pack_bf16(acc[4 * n8 + 2 * rr] * inv[rr], acc[4 * n8 + 2 * rr + 1] * inv[rr]);
+        for (int c = 0; c < LY::BOXES; ++c)
+          tma_store(om, ob + c * LY::O_BOX, c * LY::BOX_COLS, t.h, wrow0, t.b);
+        bulk_commit();
+      }
+    } else {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row_a + 8 * rr;
+        // the probe keeps the stores in the code (so O stays live) but skips them
+        if (row >= Sq || (PROBE_NO_STORE && Sq > 0)) continue;
+        bf16* orow = o + t.b * os.b + (long long)row * os.s + t.h * os.h + 2 * t4;
+#pragma unroll
+        for (int n8 = 0; n8 < D / 8; ++n8)
+          *reinterpret_cast<uint32_t*>(orow + 8 * n8) =
+              pack_bf16(acc[4 * n8 + 2 * rr] * inv[rr], acc[4 * n8 + 2 * rr + 1] * inv[rr]);
+      }
     }
   }
+  if constexpr (LY::TMA_STORE)
+    if (tid == 0) bulk_wait();  // before the CTA's shared memory goes
 }
 
 template <int D, bool CAP>
 __global__ void __launch_bounds__(HopperLayout<D>::THREADS, 1)
     fa_fwd_hopper(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
-                  const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o, Strides os,
+                  const __grid_constant__ CUtensorMap vm, const __grid_constant__ CUtensorMap om,
+                  bf16* __restrict__ o, Strides os,
                   Work<HopperLayout<D>::BQ> wk, int G, int Sq, float scale, float softcap) {
   using LY = HopperLayout<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -739,7 +870,7 @@ __global__ void __launch_bounds__(HopperLayout<D>::THREADS, 1)
     if (threadIdx.x == 0) produce<D>(&qm, &km, &vm, smem, br, wk, G);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(LY::REGS));
-    consume<D, CAP>(smem, br, o, os, wk, Sq, scale, softcap);
+    consume<D, CAP>(smem, br, o, &om, os, wk, Sq, scale, softcap);
   }
 }
 
@@ -783,8 +914,8 @@ bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* base, int heads, 
 }
 
 template <int D, bool CAP>
-int launch_tiles(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
-                 Strides os, Work<HopperLayout<D>::BQ> wk, int G, int Sq, float scale,
+int launch_tiles(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                 const CUtensorMap& om, void* o, Strides os, Work<HopperLayout<D>::BQ> wk, int G, int Sq, float scale,
                  float softcap, cudaStream_t stream) {
   auto kern = fa_fwd_hopper<D, CAP>;
   const size_t bytes = HopperLayout<D>::BYTES;
@@ -797,8 +928,8 @@ int launch_tiles(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
   const int grid = wk.tiles < sms ? wk.tiles : sms;
-  kern<<<grid, HopperLayout<D>::THREADS, bytes, stream>>>(qm, km, vm, static_cast<bf16*>(o), os,
-                                                          wk, G, Sq, scale, softcap);
+  kern<<<grid, HopperLayout<D>::THREADS, bytes, stream>>>(qm, km, vm, om, static_cast<bf16*>(o),
+                                                          os, wk, G, Sq, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -812,15 +943,16 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, i
   if ((long long)nqt * H * B > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
-  CUtensorMap qm, km, vm;
+  CUtensorMap qm, km, vm, om;  // om: a warpgroup's 64 rows of the output (TMA_STORE)
   if (!tensor_map<D>(enc, &qm, q, H, Sq, B, qs, BQ_) ||
       !tensor_map<D>(enc, &km, k, KVH, Sk, B, ks, HBK) ||
-      !tensor_map<D>(enc, &vm, v, KVH, Sk, B, vs, HBK))
+      !tensor_map<D>(enc, &vm, v, KVH, Sk, B, vs, HBK) ||
+      !tensor_map<D>(enc, &om, o, H, Sq, B, os, 64))
     return (int)cudaErrorInvalidValue;
   const Work<BQ_> wk{nqt * H * B, nqt, H, B, Sk, causal};
   if (softcap > 0.f)
-    return launch_tiles<D, true>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap, stream);
-  return launch_tiles<D, false>(qm, km, vm, o, os, wk, H / KVH, Sq, scale, softcap, stream);
+    return launch_tiles<D, true>(qm, km, vm, om, o, os, wk, H / KVH, Sq, scale, softcap, stream);
+  return launch_tiles<D, false>(qm, km, vm, om, o, os, wk, H / KVH, Sq, scale, softcap, stream);
 }
 
 // ======================================================= f32: shared memory

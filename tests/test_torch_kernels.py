@@ -91,9 +91,13 @@ def test_flash_family_heads_match_pallas(KV, G, D, softcap, dtype):
     _close(got, want, TOL[dtype])
 
 
-def test_flash_softcap_matches_pallas():
-    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 128, 128, 2, 2, 64, seed=5),
-                                       torch.float32)
+# softcap 30 at D 64, and at grok-1's group 6 at D 128 with q as drawn and
+# scaled by 8, which drives the scores past the cap (|s| up to about 44)
+@pytest.mark.parametrize("KV,G,D,qscale", [(2, 2, 64, 1.0), (1, 6, 128, 1.0),
+                                           (1, 6, 128, 8.0)])
+def test_flash_softcap_matches_pallas(KV, G, D, qscale):
+    q, k, v = _qkv(1, 128, 128, KV, G, D, seed=5)
+    (jq, jk, jv), (tq, tk, tv) = _both((q * qscale, k, v), torch.float32)
     want = jops.flash_attention(jq, jk, jv, causal=True, softcap=30.0,
                                 block_q=64, block_kv=64)
     got = ops.flash_attention(tq, tk, tv, causal=True, softcap=30.0)
@@ -406,35 +410,38 @@ def test_flash_kernel_matches_plain_on_card(S, KV, G, D, dtype, causal, softcap)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Sq,Sk,KV,G,D,causal,softcap", [
-    (77, 77, 2, 2, 64, True, 0.0),        # shorter than one 128-row tile
-    (1000, 1000, 2, 2, 128, True, 0.0),   # ragged last tile
-    (2049, 2049, 8, 2, 128, True, 0.0),   # the first length on the flash path
-    (37, 150, 2, 2, 64, True, 0.0),       # Sq < Sk
-    (150, 37, 2, 2, 128, True, 0.0),      # Sq > Sk
-    (300, 300, 1, 1, 128, True, 0.0),     # G = 1, KV = 1
-    (300, 300, 1, 8, 64, True, 0.0),      # G = 8
-    (333, 333, 2, 2, 64, False, 0.0),
-    (333, 333, 2, 2, 128, False, 0.0),
-    (256, 256, 2, 4, 128, True, 30.0),    # softcap in bf16
+@pytest.mark.parametrize("Sq,Sk,KV,G,D,causal,softcap,qscale", [
+    (77, 77, 2, 2, 64, True, 0.0, 1.0),        # shorter than one 128-row tile
+    (1000, 1000, 2, 2, 128, True, 0.0, 1.0),   # ragged last tile
+    (2049, 2049, 8, 2, 128, True, 0.0, 1.0),   # the first length on the flash path
+    (37, 150, 2, 2, 64, True, 0.0, 1.0),       # Sq < Sk
+    (150, 37, 2, 2, 128, True, 0.0, 1.0),      # Sq > Sk
+    (300, 300, 1, 1, 128, True, 0.0, 1.0),     # G = 1, KV = 1
+    (300, 300, 1, 8, 64, True, 0.0, 1.0),      # G = 8
+    (333, 333, 2, 2, 64, False, 0.0, 1.0),
+    (333, 333, 2, 2, 128, False, 0.0, 1.0),
+    (256, 256, 2, 4, 128, True, 30.0, 1.0),    # softcap in bf16
     # D 96: three 32-column boxes under the 64-byte swizzle
-    (77, 77, 2, 1, 96, True, 0.0),        # shorter than one tile
-    (1000, 1000, 2, 2, 96, True, 0.0),    # ragged last tile, G = 2
-    (37, 150, 2, 2, 96, True, 0.0),       # Sq < Sk
-    (150, 37, 2, 4, 96, True, 0.0),       # Sq > Sk, G = 4
-    (1000, 1000, 2, 2, 96, False, 0.0),   # non-causal, ragged
-    (300, 300, 1, 4, 96, True, 0.0),      # KV = 1, G = 4
+    (77, 77, 2, 1, 96, True, 0.0, 1.0),        # shorter than one tile
+    (1000, 1000, 2, 2, 96, True, 0.0, 1.0),    # ragged last tile, G = 2
+    (37, 150, 2, 2, 96, True, 0.0, 1.0),       # Sq < Sk
+    (150, 37, 2, 4, 96, True, 0.0, 1.0),       # Sq > Sk, G = 4
+    (1000, 1000, 2, 2, 96, False, 0.0, 1.0),   # non-causal, ragged
+    (300, 300, 1, 4, 96, True, 0.0, 1.0),      # KV = 1, G = 4
     # D 64: 192-row q tiles of three consumer warpgroups
-    (191, 191, 2, 2, 64, True, 0.0),      # one row short of a tile
-    (193, 193, 2, 2, 64, True, 0.0),      # one row into the second tile
-    (385, 385, 2, 3, 64, True, 0.0),      # one row into the third
-    (385, 385, 2, 3, 64, False, 0.0),
-    (3072, 3072, 16, 1, 64, False, 0.0),  # seamless's encoder at full width
+    (191, 191, 2, 2, 64, True, 0.0, 1.0),      # one row short of a tile
+    (193, 193, 2, 2, 64, True, 0.0, 1.0),      # one row into the second tile
+    (385, 385, 2, 3, 64, True, 0.0, 1.0),      # one row into the third
+    (385, 385, 2, 3, 64, False, 0.0, 1.0),
+    (3072, 3072, 16, 1, 64, False, 0.0, 1.0),  # seamless's encoder at full width
+    # grok-1's softcap with q scaled by 8: scores past the cap
+    (700, 700, 2, 6, 128, True, 30.0, 8.0),
+    (1000, 1000, 2, 6, 128, False, 30.0, 8.0),  # ragged, non-causal
 ])
-def test_flash_bf16_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap):
+def test_flash_bf16_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap, qscale):
     _need_cuda()
-    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
-               for a in _qkv(2, Sq, Sk, KV, G, D, seed=Sq + Sk + G))
+    q, k, v = _qkv(2, Sq, Sk, KV, G, D, seed=Sq + Sk + G)
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (q * qscale, k, v))
     before = fa.LAUNCHES
     got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=causal, softcap=softcap)
