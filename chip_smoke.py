@@ -18,7 +18,10 @@ exits non-zero without the final line:
                group 3 at 64; group 6 at 128 with softcap 30; head_dim 96
                in f32), at the recurrent_encdec path's (seamless's
                encoder, non-causal over 3,072 frames, and its decoder, both
-               16 heads of 64), non-causal, softcapped, ragged and in f32, each
+               16 heads of 64), non-causal, softcapped, ragged and in f32 (the
+               f32 kernel also at the small phase's shape, at the prefill
+               shape, and with softcap and q scaled by 8, checked only; its
+               bound counts f32-accurate products at 495 / 3 TFLOP/s), each
                with its time over SDPA's (softcapped: over a compiled
                ``flex_attention`` with a tanh ``score_mod``, held to the
                plain version too); the two-run merge at edges and 2^20
@@ -26,7 +29,8 @@ exits non-zero without the final line:
                preprocess over one minibatch's local share (171 crops of
                the corpus) beside the per-image loop it replaces;
   4. small   — a smoke-width model on the card against the same model on
-               the CPU (plain versions) at a prompt that takes the flash path;
+               the CPU (plain versions) at a prompt that takes the flash path,
+               in f32: the f32 flash kernel once a layer per prefill;
   5. main    — qwen3-1.7b at full width (random weights from a seed) through
                ``serve.generate``: cold (prefill, put, fetch, decode) and
                warm (attach, no prefill) through a KV-cache store on an
@@ -120,7 +124,7 @@ exits non-zero without the final line:
                param and moment; the flash kernel must not launch (the
                train path runs the differentiable chunked twin);
  15. train_e2e — ``repro_torch.train.e2e.run`` on paper-lm-100m at full
-               width with prep ingest: 12 steps, a checkpoint into OffloadDB
+               width with prep ingest: 9 steps, a checkpoint into OffloadDB
                every 4, a crash after step 8, recover, restore, resume; the
                resumed losses bit for bit those of an uninterrupted run, the
                restored ingest state the one saved, every minibatch the
@@ -194,15 +198,19 @@ os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
 os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them,
-# f64 outside them, HBM bandwidth
+# f32-accurate products on the tensor cores (3xTF32: three TF32 products
+# each), f64 outside them, HBM bandwidth
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_F32_3XTF32 = 495e12 / 3
 PEAK_F64 = 34e12
 PEAK_BYTES = 3.35e12
 
 # main-path shape: qwen3-1.7b at full width, two 4,096-token prompts
 BATCH, PROMPT, STEPS = 2, 4096, 16
 MAX_LEN = PROMPT + STEPS
+# the small phase's prompt, past the flash threshold (2,048)
+SMALL_S = 2304
 
 # prep path: OffloadPrep's defaults (out 224, a third offloaded) on the
 # corpus's own size distribution, 4 minibatches of 256
@@ -210,11 +218,13 @@ PREP_IMAGES, PREP_BATCH, PREP_OUT, PREP_SEED = 1024, 256, 224, 5
 # pushdown path: fig21's corpus shape (240-byte values) at 200,000 keys
 PUSHDOWN_KEYS = 200_000
 # train paths: the chunked twin's first length; train_e2e.py's defaults
-# (batch 8, seq 128, prep ingest at out 32) for 12 steps, a checkpoint every
-# 4, a crash after 8; qwen3 at the train_4k cell's length, batch 2 (the
-# cell's global batch of 256 cut to 2)
+# (batch 8, seq 128, prep ingest at out 32) for 9 steps, a checkpoint every
+# 4, a crash after 8 (the saves at 4 and 8 before it, as the step-8
+# generation is not yet durable, and the one at 8 after it: the fewest
+# saves this flow can have); qwen3 at the train_4k cell's length, batch 2
+# (the cell's global batch of 256 cut to 2)
 TRAIN_SMALL_S = 2304
-E2E_STEPS, E2E_CKPT_EVERY, E2E_KILL_AT = 12, 4, 8
+E2E_STEPS, E2E_CKPT_EVERY, E2E_KILL_AT = 9, 4, 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 3
 # failover path: the main path's model, prompts and store shape on a
 # FaultyFabric from a fixed seed; one of its 4 engines is killed, and one
@@ -453,9 +463,16 @@ def phase_kernels():
         # softcap (|s| up to about 44): what the cap's tanh is held to
         ("grok_g6_softcap_q8_bf16", BATCH, PROMPT, 8, 6, 128, torch.bfloat16, True, 30.0,
          8.0),
+        # f32 at the small phase's shape (qwen3-1.7b:smoke at head_dim 64, S
+        # 2,304) and at qwen3-1.7b's prefill shape; grok-1's group 6 with
+        # softcap and q scaled by 8, checked only: what 3xTF32's products
+        # are held to where the scores pass the cap
+        ("small_path_f32", 2, SMALL_S, 2, 2, 64, torch.float32, True, 0.0),
+        ("prefill_f32", BATCH, PROMPT, 8, 2, 128, torch.float32, True, 0.0),
+        ("softcap_f32_q8", 1, 700, 2, 6, 128, torch.float32, True, 30.0, 8.0),
     ]
     check_only = {"d96_ragged_noncausal_g2_bf16", "d96_kv1_g4_bf16", "d64_s193_g3_bf16",
-                  "grok_g6_softcap_q8_bf16"}
+                  "grok_g6_softcap_q8_bf16", "softcap_f32_q8"}
 
     def flash_case(name, B, S, KV, G, D, dt, causal, cap, qscale=1.0):
         q, k, v = _flash_inputs(B, S, KV, G, D, dt, seed=len(results), qscale=qscale)
@@ -489,7 +506,7 @@ def phase_kernels():
             del qt, kt, vt
         rec["ms_over_library"] = rec["ms"] / rec["library_ms"]
         flops, nbytes = _flash_work(q, k, causal)
-        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
+        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32_3XTF32
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peak)
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         rec["flops"], rec["bytes"] = flops, nbytes
@@ -508,6 +525,11 @@ def phase_kernels():
         for name in ("glm4_g16_bf16", "kv8_g4_bf16", "phi3v_d96_g1_bf16",
                      "granite_moe_g3_bf16", "grok_g6_softcap_bf16", "d96_f32",
                      "seamless_enc_noncausal_g1_d64_bf16", "seamless_dec_g1_d64_bf16")}
+    fa_rec["f32_shapes"] = {name: {k: results[name].get(k) for k in (
+        "shape", "causal", "softcap", "max_abs_err", "tol", "ms", "plain_ms", "library",
+        "library_ms", "ms_over_library", "bound_ms", "bound_by", "share_of_bound")}
+        for name in ("small_f32", "softcap_f32", "noncausal_f32", "d96_f32", "small_path_f32",
+                     "prefill_f32")}
 
     merged = {}
     g = torch.Generator("cuda").manual_seed(7)
@@ -753,6 +775,7 @@ def phase_small():
     at a prompt past the flash threshold."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.config import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve import generate
@@ -763,19 +786,26 @@ def phase_small():
         head_dim=64, compute_dtype=torch.float32)  # the kernel takes D in {64, 96, 128}
     model = build_model(cfg)
     params = model.init(torch.Generator("cpu").manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab_size, (2, 2304), dtype=torch.int32,
+    prompt = torch.randint(0, cfg.vocab_size, (2, SMALL_S), dtype=torch.int32,
                            generator=torch.Generator("cpu").manual_seed(1))
     gpu_params = tree_map(lambda t: t.cuda(), params)
-    lg_cpu, _, _ = model.apply(params, {"tokens": prompt}, mode="prefill", max_len=2310)
+    max_len = SMALL_S + 6
+    lg_cpu, _, _ = model.apply(params, {"tokens": prompt}, mode="prefill", max_len=max_len)
+    fa.LAUNCHES = 0
     lg_gpu, _, _ = model.apply(gpu_params, {"tokens": prompt.cuda()}, mode="prefill",
-                               max_len=2310)
+                               max_len=max_len)
     err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
     check(torch.allclose(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4),
           f"smoke-width prefill logits differ card vs CPU: {err}")
-    t_cpu = generate(model, params, prompt, steps=4, max_len=2310)
-    t_gpu = generate(model, gpu_params, prompt.cuda(), steps=4, max_len=2310)
+    t_cpu = generate(model, params, prompt, steps=4, max_len=max_len)
+    t_gpu = generate(model, gpu_params, prompt.cuda(), steps=4, max_len=max_len)
     check(torch.equal(t_cpu, t_gpu.cpu()), "smoke-width tokens differ card vs CPU")
-    emit("small", prefill_logits_max_abs_err=err, tokens_equal=True)
+    # the f32 flash kernel, once an attention layer per prefill (two prefills)
+    want = 2 * _flash_per_prefill(cfg, SMALL_S)
+    check(fa.LAUNCHES == want, f"small: {fa.LAUNCHES} f32 flash launches, expected {want}")
+    emit("small", prefill_logits_max_abs_err=err, tokens_equal=True,
+         flash_launches=fa.LAUNCHES)
+    return fa.LAUNCHES
 
 
 class _Timed:
@@ -2837,7 +2867,7 @@ def main() -> int:
     timed_phase("build", phase_build)
     fa_rec = timed_phase("kernels", phase_kernels)
     pp_rec = timed_phase("kernels_preprocess", phase_kernels_preprocess)
-    timed_phase("small", phase_small)
+    small_launches = timed_phase("small", phase_small)
     launches, nchunks, nruns, main_tokens, served = timed_phase("main", phase_main)
     paper_launches = timed_phase("paper_figures", phase_paper_figures, served)
     _free()
@@ -2866,14 +2896,15 @@ def main() -> int:
                               "archs": arch_launches["flash_attention"],
                               "families": family_launches["flash_attention"],
                               "recurrent_encdec": recurrent_launches["flash_attention"],
-                              "train_small": small_flash,
+                              "small_f32": small_launches, "train_small": small_flash,
                               "train_e2e": e2e_launches["flash_attention"],
                               "train": train_flash, "distribution": dist_flash},
          "rel_err": fa_rec["rel_err"], "row_rel_err": fa_rec["row_rel_err"],
          "ms": fa_rec["ms"], "plain_ms": fa_rec["plain_ms"], "bound_ms": fa_rec["bound_ms"],
          "bound_by": fa_rec["bound_by"], "library_ms": fa_rec["library_ms"],
          "ms_over_library": fa_rec["ms_over_library"],
-         "share_of_bound": fa_rec["share_of_bound"], "arch_shapes": fa_rec["arch_shapes"]},
+         "share_of_bound": fa_rec["share_of_bound"], "arch_shapes": fa_rec["arch_shapes"],
+         "f32_shapes": fa_rec["f32_shapes"]},
         {"name": "merge", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/merge.cu",
          "replaces": "src/repro/kernels/kvmerge.py:24",

@@ -94,9 +94,57 @@
 //       at seamless's encoder (B 2, S 3,072, 16 heads, full; the D 128
 //       design 0.1799). With softcap (no model at D 64 has one) it spills
 //       188 bytes.
-//   * f32 (exact to f32 rounding, for tests at f32; wgmma has no exact
-//     f32): one CTA of 4 warps per (batch*head, 64-row q tile); the tiles
-//     are staged in shared memory and both products are plain FMA loops.
+//   * f32 (any model run with compute_dtype float32, and the card-against-
+//     CPU checks), held to 2e-5 (allclose) against the plain version: both
+//     products on the tensor cores in 3xTF32. Each operand x is split into
+//     hi = tf32(x) and lo = tf32(x - hi), rounded to nearest (ties away, as
+//     cvt.rna) with the low 13 bits cleared, and a product is lo.hi + hi.lo
+//     + hi.hi with f32 sums (each product's error about 2^-21). What bounds
+//     it: operations, FLOP / (495 / 3 TFLOP/s), 0.833 ms at the prefill
+//     shape in f32. mma.sync m16n8k8 (tf32 wgmma takes both shared operands
+//     K-major only, and Q, K and V split in shared memory for one 64-row
+//     warpgroup do not fit in 227 KB beside a staging buffer at useful
+//     tile sizes). A CTA of NW warps, 16 q rows each, per q tile of one
+//     (batch, head), in a flat grid numbered heaviest first (causal: the
+//     last q tiles first), so B * H has no limit.
+//     - K/V: cp.async lands tile j + 1's raw f32 rows (zeros past Sk) while
+//       the warps compute on tile j; then one pass of all threads splits
+//       every element once, into 16-byte {hi, hi, lo, lo} words in fragment
+//       order (K by column pairs, V by key pairs), so a B fragment is one
+//       conflict-free 16-byte load. Causal K/V tiles wholly above the
+//       diagonal are never loaded, and a warp skips those above its rows.
+//     - Q: D 64 split once into registers; D 96 and 128 raw in shared
+//       memory and split for every K/V tile (registers are the limit: at
+//       D 128, Q in registers spilled and ran 1.4x slower).
+//     - S = Q K^T: hi.hi and the two small products in two accumulators,
+//       added once in f32. The tensor cores' f32 sums truncate; the small
+//       products' accumulator is 2^-11 smaller, so its truncation is lost.
+//     - Softmax on the score fragments in registers (quad shuffles for a
+//       row's max and sum), scale * log2 e folded into one FFMA before
+//       ex2.approx; softcap with the accurate tanhf. Only tiles that cross
+//       the diagonal or the ragged end of Sk are masked.
+//     - P V: P split in registers; the score fragment is the A operand's
+//       layout once k position t is key 2t and t + 4 is key 2t + 1 (V's
+//       split words follow that order). Each K/V tile's P V is summed
+//       afresh, CH n-tiles of O at a time (hi.hi and the small products
+//       apart), and added to O in one rounded FFMA that also rescales O:
+//       the truncating sums never run over more than one tile of keys.
+//       Summed into O directly they ran over the whole row, and the error
+//       grew with S: 0.27 of the tolerance at the prefill shape and 1.08
+//       (a failure) at S 32,768 non-causal, against 0.06 and 0.02 here.
+//     Per head dim (F32Design): D 64 4 warps, 64-key tiles, Q in
+//     registers, 101 KB, 2 CTAs a SM; D 96 4 warps, 32-key tiles, 101 KB,
+//     2 a SM; D 128 8 warps, 32-key tiles, Q 68 KB + raw K/V 32 KB + split
+//     K/V 68 KB = 167 KB, one a SM, and 4 warps (64-row tiles, twice the
+//     CTAs) where 128-row tiles would leave SMs idle. Times (kernel alone,
+//     scripts/bench_flash.py on an NVIDIA H100 80GB HBM3 at 700 W, beside
+//     F.scaled_dot_product_attention in the same call; PERF.md has every
+//     run): qwen3-1.7b's prefill shape in f32 2.61 ms against SDPA's 13.36
+//     (0.20x; 32 % of the bound), the small check's shape (B 2, S 2,304, D
+//     64) 0.191 against 1.080, and the four test shapes 0.019-0.053 ms
+//     (0.32-1.06x SDPA; 1.06x at S 333 non-causal, 12 CTAs), where the
+//     design before (shared-memory FMA loops, 4 warps of 64 rows a CTA)
+//     took 0.068-0.193, 0.653 and 10.95 ms.
 //
 // Measured on the H100 and left out, being slower (PERF.md has the times):
 // at D 128, issuing Q K_j^T ahead of P_{j-1} V_{j-1} with no turns, turns
@@ -113,6 +161,18 @@
 // warpgroups), and 3 K/V stages. Not done: a 2-CTA cluster that multicasts
 // one K/V load to two q heads of one kv head (the K/V-loaded-once probe's
 // 3.5 %), packing the G q heads of one kv head into one CTA.
+// f32, measured and left out (PERF.md has the times): each warp splitting its own
+// K/V fragments (every element split once a warp; 4.59 ms at the f32
+// prefill shape), cvt.rna.tf32.f32 for the rounding (the same bits behind
+// an inf/NaN guard: 16-25 % slower), Q in registers at D 96 and 128
+// (spills), P V summed into O directly (error grows with S; fails at S
+// 32,768), one accumulator for all three score products (less accurate,
+// no faster), three (no faster), 2, 8 or 16 n-tiles of O a P V pass, the
+// split loops unrolled (more spills), 64-key tiles at D 128 (Q then fits
+// only in registers), 16-key tiles, 3 CTAs a SM at D 64, and 2 warps a CTA
+// for small grids. Not done: wgmma (see above), a persistent grid, and a
+// split over keys for the smallest grids (the fixed entry point has no
+// scratch for its partial sums).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,26 +180,12 @@
 
 namespace {
 
-constexpr int BQ = 64;  // f32: q rows per CTA
-constexpr int BK = 64;  // f32: kv rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int WROWS = BQ / NWARPS;  // q rows owned by one warp (16)
 constexpr float NEG_INF = -1e30f;   // the JAX kernel's mask value
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Strides {
   long long b, s, h;
 };
-
-__host__ __device__ constexpr size_t round128(size_t x) { return (x + 127) / 128 * 128; }
-
-__device__ __forceinline__ float masked_score(float s, float scale, float softcap, int key,
-                                              int row, int Sk, int causal) {
-  s *= scale;
-  if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-  return (key >= Sk || (causal && key > row)) ? NEG_INF : s;
-}
 
 // ======================================================= bf16: Hopper
 using bf16 = __nv_bfloat16;
@@ -955,167 +1001,428 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, i
   return launch_tiles<D, false>(qm, km, vm, om, o, os, wk, H / KVH, Sq, scale, softcap, stream);
 }
 
-// ======================================================= f32: shared memory
+// ======================================================= f32: 3xTF32 on mma.sync
+// (the design is in the note at the top of the file)
+
+// The design each head dim ships: NW warps of 16 q rows share a q tile and
+// every K/V tile of BK keys. A grid of fewer such tiles than the card has
+// SMs takes NW_SMALL warps a CTA instead (shorter q tiles: more SMs at
+// work). With Q_RES a thread keeps its Q fragments split (hi, lo) in
+// registers for the whole q tile; else Q stays raw in shared memory and is
+// split again for every K/V tile (D/2 fewer registers a thread).
+template <int NW_, int NW_SMALL_, int BK_, bool Q_RES_>
+struct F32Knobs {
+  static constexpr int NW = NW_;
+  static constexpr int NW_SMALL = NW_SMALL_;
+  static constexpr int BK = BK_;
+  static constexpr bool Q_RES = Q_RES_;
+};
 template <int D>
+struct F32Design;
+template <>
+struct F32Design<64> : F32Knobs<4, 4, 64, true> {};
+template <>
+struct F32Design<96> : F32Knobs<4, 4, 32, false> {};
+template <>
+struct F32Design<128> : F32Knobs<8, 4, 32, false> {};
+
+// Shared memory, in floats: the raw K and V tiles as cp.async lands them
+// (BK x D each), then the split tiles the warps read, each fragment's hi
+// and lo in one 16-byte word:
+//   SK: key r, columns 2p, 2p + 1 at r * LDSK + 4p: {hi, hi, lo, lo}
+//   SV: keys 2p, 2p + 1, column n at p * LDSV + 4n: {hi, hi, lo, lo}
+// LDSK = 16 and LDSV = 8 mod 32: a quarter warp's 16-byte fragment loads
+// (2 keys x 4 column pairs of K; 4 key pairs x 2 columns of V) hit every
+// bank once. Without Q_RES, the raw Q tile follows (BQ rows of LDQ = 8
+// mod 32: a half warp's float2 loads hit every bank once).
+template <int D, int NW_>
 struct F32Layout {
-  static constexpr int LD = D + 1;    // odd row stride: column reads are conflict-free
-  static constexpr int LDS = BK + 1;  // scores, then probabilities in place
-  static constexpr int LDO = D + 4;   // output accumulator
-  static constexpr size_t TILE = round128(sizeof(float) * BQ * LD);
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + TILE;
-  static constexpr size_t V = K + TILE;
-  static constexpr size_t S = V + TILE;
-  static constexpr size_t O = S + round128(sizeof(float) * BQ * LDS);
-  static constexpr size_t M = O + round128(sizeof(float) * BQ * LDO);
-  static constexpr size_t L = M + round128(sizeof(float) * BQ);
-  static constexpr size_t BYTES = L + round128(sizeof(float) * BQ);
+  static constexpr int NW = NW_;
+  static constexpr int BK = F32Design<D>::BK;
+  static constexpr int BQ = 16 * NW;  // q rows per CTA
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int LDSK = 2 * D + 16;
+  static constexpr int LDSV = 4 * D + 8;
+  static constexpr int RAW_V = BK * D;
+  static constexpr int SK = 2 * BK * D;
+  static constexpr int SV = SK + BK * LDSK;
+  static constexpr int LDQ = D + 8;
+  static constexpr int Q = SV + (BK / 2) * LDSV;
+  static constexpr size_t BYTES =
+      sizeof(float) * (Q + (F32Design<D>::Q_RES ? 0 : BQ * LDQ));
+  // CTAs a SM: its 228 KB of shared memory, 1 KB of it kept for each CTA
+  static constexpr int PER_SM = 233472 / (BYTES + 1024);
 };
 
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long stride,
-                                              int row0, int n_rows) {
-  constexpr int VPR = D / 4;
-  constexpr int LD = F32Layout<D>::LD;
-  for (int i = threadIdx.x; i < BK * VPR; i += NTHREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * stride + c);
-    dst[r * LD + c] = val.x;
-    dst[r * LD + c + 1] = val.y;
-    dst[r * LD + c + 2] = val.z;
-    dst[r * LD + c + 3] = val.w;
+// 16 bytes global -> shared, asynchronously; zeros where !in (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// returns once this thread's copies have all landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// x = hi + lo, each a tf32 rounded as cvt.rna.tf32.f32 rounds (to
+// nearest, ties away from zero) and with its low 13 bits cleared: half a
+// tf32 ulp added to the magnitude bits, then the 13 bits masked. On finite
+// x this is cvt.rna's result bit for bit; cvt.rna itself compiles to the
+// same add and mask behind an inf/NaN guard (FSETP, SEL) that took 16-25 %
+// of the kernel's time (PERF.md). x - hi is exact in f32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  hi = h;
+  lo = (__float_as_uint(x - __uint_as_float(h)) + 0x1000u) & 0xffffe000u;
+}
+// the split of a and b as one 16-byte word {hi a, hi b, lo a, lo b}
+__device__ __forceinline__ uint4 split_pair(float a, float b) {
+  uint4 w;
+  split_tf32(a, w.x, w.z);
+  split_tf32(b, w.y, w.w);
+  return w;
+}
+
+// d (16 x 8) += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 sums.
+// a: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b: (t, g), (t + 4, g);
+// d: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) (g = lane / 4, t = lane % 4)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d + dl += a . b in 3xTF32, b as {hi, hi, lo, lo}: the two small products
+// (first, as CUTLASS's fast f32 orders them) into dl, hi.hi into d
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], float (&dl)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint4 b) {
+  mma_tf32(dl, al, b.x, b.y);
+  mma_tf32(dl, ah, b.z, b.w);
+  mma_tf32(d, ah, b.x, b.y);
+}
+
+// The online softmax of a warp's 16 rows on the score fragments: this
+// thread holds rows g (r = 0) and g + 8 (r = 1), keys 8n + 2t + (i & 1) of
+// s[n][i], row g + 8 * (i >> 1). With softcap the tile holds
+// tanh(s * scale / softcap) (tanhf: tanh.approx's 2^-10.987 would break
+// the f32 tolerance), and softcap * log2 e goes into mul.
+template <bool CAP, int NT>
+struct SoftmaxF32 {
+  float m[2] = {NEG_INF, NEG_INF};  // running max of this thread's two rows
+  float l[2] = {0.f, 0.f};          // this thread's partial row sums
+  float mul;                        // score (CAP: its tanh) -> log2 units
+  float cap_in;                     // CAP: scale / softcap
+
+  template <bool MASK>
+  __device__ __forceinline__ void tile(float (&s)[NT][4], float (&corr)[2], int k0, int row_a,
+                                       int t, int Sk, int causal) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (CAP) s[n][i] = tanhf(s[n][i] * cap_in);
+        if (MASK) {
+          const int key = k0 + 8 * n + 2 * t + (i & 1);
+          if (key >= Sk || (causal && key > row_a + 8 * (i >> 1))) s[n][i] = NEG_INF;
+        }
+      }
+    float neg[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(s[0][2 * r], s[0][2 * r + 1]);
+#pragma unroll
+      for (int n = 1; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));  // a row's keys sit in one quad
+      mx = fmaxf(fmaxf(mx, __shfl_xor_sync(FULL, mx, 2)), m[r]);
+      corr[r] = ex2((m[r] - mx) * mul);
+      m[r] = mx;
+      neg[r] = -mx * mul;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        s[n][2 * r] = ex2(fmaf(s[n][2 * r], mul, neg[r]));
+        s[n][2 * r + 1] = ex2(fmaf(s[n][2 * r + 1], mul, neg[r]));
+        sum += s[n][2 * r] + s[n][2 * r + 1];
+      }
+      l[r] = l[r] * corr[r] + sum;
+    }
   }
-}
+};
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+// One CTA per q tile of BQ rows of one (batch, head), tiles numbered
+// heaviest first (causal: the last q tiles first) in a flat grid.
+template <int D, int NW, bool CAP>
+__global__ void __launch_bounds__(32 * NW, F32Layout<D, NW>::PER_SM)
     fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, int H, int G, int Sq, int Sk,
-               Strides qs, Strides ks, Strides vs, Strides os, float scale, float softcap,
-               int causal) {
-  using LY = F32Layout<D>;
-  constexpr int NJ = D / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + LY::Q);
-  float* Ks = reinterpret_cast<float*>(smem + LY::K);
-  float* Vs = reinterpret_cast<float*>(smem + LY::V);
-  float* Ss = reinterpret_cast<float*>(smem + LY::S);
-  float* Os = reinterpret_cast<float*>(smem + LY::O);
-  float* row_m = reinterpret_cast<float*>(smem + LY::M);
-  float* row_l = reinterpret_cast<float*>(smem + LY::L);
+               const float* __restrict__ v, float* __restrict__ o, int BH, int H, int G, int nqt,
+               int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+               float softcap, int causal) {
+  using LY = F32Layout<D, NW>;
+  using DS = F32Design<D>;
+  constexpr int BK = LY::BK;
+  constexpr int NT = BK / 8;  // 8-key n-tiles of S, k-steps of P V
+  constexpr int KS = D / 8;   // k-steps of Q K^T, n-tiles of O
+  constexpr int CH = 4;       // n-tiles of O a P V pass sums afresh
+  static_assert(KS % CH == 0, "P V runs over whole chunks of O");
+  extern __shared__ __align__(16) float smem_f[];
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int kvh = h / G;
-  const int q0 = qt * BQ;
+  const int bh = blockIdx.x % BH;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int q0 = (nqt - 1 - (int)(blockIdx.x / BH)) * LY::BQ;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int r0 = warp * WROWS;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr0 = q0 + 16 * warp;  // this warp's first q row
+  const int row_a = wr0 + g;       // this thread's rows: row_a, row_a + 8
+  const float* kb = k + b * ks.b + (h / G) * ks.h;
+  const float* vb = v + b * vs.b + (h / G) * vs.h;
+  const float* sk = smem_f + LY::SK;
+  const float* sv = smem_f + LY::SV;
 
-  load_tile_f32<D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
-  for (int i = threadIdx.x; i < BQ * LY::LDO; i += NTHREADS) Os[i] = 0.f;
-  if (threadIdx.x < BQ) {
-    row_m[threadIdx.x] = NEG_INF;
-    row_l[threadIdx.x] = 0.f;
+  const int kv_end = causal ? min(Sk, q0 + LY::BQ) : Sk;
+  const int n = (kv_end + BK - 1) / BK;  // K/V tiles the CTA loads
+  // the K/V tiles this warp computes on: none past Sq, none wholly above
+  // its rows' diagonal
+  const int wn = wr0 >= Sq ? 0 : ((causal ? min(Sk, wr0 + 16) : Sk) + BK - 1) / BK;
+
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  auto load = [&](int j) {    // raw K/V tile j; rows past Sk as zeros
+    for (int i = threadIdx.x; i < BK * CPR; i += LY::THREADS) {
+      const int r = i / CPR;
+      const int c = (i % CPR) * 4;
+      const int key = j * BK + r;
+      const bool in = key < Sk;
+      const long long row = in ? key : 0;
+      cp_async16(smem_f + r * D + c, kb + row * ks.s + c, in);
+      cp_async16(smem_f + LY::RAW_V + r * D + c, vb + row * vs.s + c, in);
+    }
+    cp_async_commit();
+  };
+  // the landed raw tile -> SK, SV: every element split once for all warps
+  auto split = [&]() {
+    for (int i = threadIdx.x; i < BK * CPR; i += LY::THREADS) {
+      const int r = i / CPR;
+      const int c = (i % CPR) * 4;
+      const float4 x = *reinterpret_cast<const float4*>(smem_f + r * D + c);
+      float* dst = smem_f + LY::SK + r * LY::LDSK + 2 * c;
+      *reinterpret_cast<uint4*>(dst) = split_pair(x.x, x.y);
+      *reinterpret_cast<uint4*>(dst + 4) = split_pair(x.z, x.w);
+    }
+    for (int i = threadIdx.x; i < (BK / 2) * CPR; i += LY::THREADS) {
+      const int p = i / CPR;
+      const int c = (i % CPR) * 4;
+      const float4 x = *reinterpret_cast<const float4*>(smem_f + LY::RAW_V + 2 * p * D + c);
+      const float4 y = *reinterpret_cast<const float4*>(smem_f + LY::RAW_V + (2 * p + 1) * D + c);
+      uint4* dst = reinterpret_cast<uint4*>(smem_f + LY::SV + p * LY::LDSV + 4 * c);
+      dst[0] = split_pair(x.x, y.x);
+      dst[1] = split_pair(x.y, y.y);
+      dst[2] = split_pair(x.z, y.z);
+      dst[3] = split_pair(x.w, y.w);
+    }
+  };
+  // Q as A fragments: k-step kk's position t is column 8kk + 2t and t + 4
+  // is 8kk + 2t + 1 (the same order of D in Q and K leaves the dot
+  // products as they are), so a fragment's two columns of a row are one
+  // float2. Q_RES: split once into registers; else the raw tile comes into
+  // shared memory with K/V tile 0 (rows past Sq as zeros).
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* qsm = smem_f + LY::Q + (16 * warp + g) * LY::LDQ + 2 * t;
+  if constexpr (!DS::Q_RES) {
+    for (int i = threadIdx.x; i < LY::BQ * CPR; i += LY::THREADS) {
+      const int r = i / CPR;
+      const int c = (i % CPR) * 4;
+      const bool in = q0 + r < Sq;
+      cp_async16(smem_f + LY::Q + r * LY::LDQ + c, qb + (in ? q0 + r : 0) * qs.s + c, in);
+    }
   }
-  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
-  const int nkt = (kv_end + BK - 1) / BK;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_f32<D>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, Sk);
-    load_tile_f32<D>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, Sk);
-    __syncthreads();
-    // scores: lane owns key columns lane and lane + 32 of the warp's rows
-    float sacc[WROWS][2] = {};
-    for (int d = 0; d < D; ++d) {
-      const float ka = Ks[lane * LY::LD + d];
-      const float kb2 = Ks[(lane + 32) * LY::LD + d];
+  load(0);
+  uint32_t qh[DS::Q_RES ? KS : 1][4], ql[DS::Q_RES ? KS : 1][4];
+  if constexpr (DS::Q_RES) {
 #pragma unroll
-      for (int r = 0; r < WROWS; ++r) {
-        const float qv = Qs[(r0 + r) * LY::LD + d];
-        sacc[r][0] = fmaf(qv, ka, sacc[r][0]);
-        sacc[r][1] = fmaf(qv, kb2, sacc[r][1]);
+    for (int kk = 0; kk < KS; ++kk) {
+      float2 f[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        f[r] = row < Sq ? *reinterpret_cast<const float2*>(qb + row * qs.s + 8 * kk + 2 * t)
+                        : make_float2(0.f, 0.f);
       }
+      split_tf32(f[0].x, qh[kk][0], ql[kk][0]);
+      split_tf32(f[1].x, qh[kk][1], ql[kk][1]);
+      split_tf32(f[0].y, qh[kk][2], ql[kk][2]);
+      split_tf32(f[1].y, qh[kk][3], ql[kk][3]);
     }
-    for (int r = 0; r < WROWS; ++r) {
-      const int row = r0 + r;
-      float s0 = masked_score(sacc[r][0], scale, softcap, k0 + lane, q0 + row, Sk, causal);
-      float s1 = masked_score(sacc[r][1], scale, softcap, k0 + lane + 32, q0 + row, Sk, causal);
-      const float mx = warp_max(fmaxf(s0, s1));
-      const float m_old = row_m[row];
-      const float m_new = fmaxf(m_old, mx);
-      s0 = expf(s0 - m_new);
-      s1 = expf(s1 - m_new);
-      Ss[row * LY::LDS + lane] = s0;
-      Ss[row * LY::LDS + lane + 32] = s1;
-      const float sum = warp_sum(s0 + s1);
-      const float corr = expf(m_old - m_new);
-      for (int d = lane; d < D; d += 32) Os[row * LY::LDO + d] *= corr;
-      __syncwarp();  // every lane has read row_m before lane 0 updates it
-      if (lane == 0) {
-        row_m[row] = m_new;
-        row_l[row] = row_l[row] * corr + sum;
-      }
-    }
-    __syncwarp();
-    // O += P V: lane owns output columns lane + 32*j of the warp's rows
-    float oacc[WROWS][NJ];
-#pragma unroll
-    for (int r = 0; r < WROWS; ++r)
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) oacc[r][jj] = Os[(r0 + r) * LY::LDO + lane + 32 * jj];
-    for (int c = 0; c < BK; ++c) {
-      float vv[NJ];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) vv[jj] = Vs[c * LY::LD + lane + 32 * jj];
-#pragma unroll
-      for (int r = 0; r < WROWS; ++r) {
-        const float p = Ss[(r0 + r) * LY::LDS + c];
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) oacc[r][jj] = fmaf(p, vv[jj], oacc[r][jj]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < WROWS; ++r)
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) Os[(r0 + r) * LY::LDO + lane + 32 * jj] = oacc[r][jj];
-    __syncwarp();
   }
-  for (int r = 0; r < WROWS; ++r) {
-    const int qpos = q0 + r0 + r;
-    if (qpos >= Sq) break;
-    const float l = fmaxf(row_l[r0 + r], 1e-30f);
-    float* orow = o + b * os.b + (long long)qpos * os.s + h * os.h;
-    for (int d = lane; d < D; d += 32) orow[d] = Os[(r0 + r) * LY::LDO + d] / l;
+
+  SoftmaxF32<CAP, NT> sm;
+  sm.cap_in = CAP ? scale / softcap : 0.f;
+  sm.mul = (CAP ? softcap : scale) * LOG2E;
+  float acc[KS][4];  // O, unnormalised
+#pragma unroll
+  for (int nn = 0; nn < KS; ++nn)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nn][i] = 0.f;
+
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait_all();  // raw tile j has landed (this thread's copies) ...
+    __syncthreads();      // ... everyone's, and every warp is done with SK, SV
+    split();
+    __syncthreads();      // SK, SV hold tile j; the raw tile is free
+    if (j + 1 < n) load(j + 1);  // under this tile's products
+    if (j >= wn) continue;
+    const int k0 = j * BK;
+
+    // S = Q K^T: B fragment (t, g), (t + 4, g) of n-tile nn is key
+    // 8nn + g, columns 8kk + 2t and + 1
+    // hi.hi in s, the two small products in sl, added once in f32: the
+    // tensor cores truncate sl's sums at its own, 2^-11 smaller, scale
+    float s[NT][4], sl[NT][4];
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nn][i] = sl[nn][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (DS::Q_RES) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ah[i] = qh[kk][i];
+          al[i] = ql[kk][i];
+        }
+      } else {
+        const float2 f0 = *reinterpret_cast<const float2*>(qsm + 8 * kk);
+        const float2 f1 = *reinterpret_cast<const float2*>(qsm + 8 * LY::LDQ + 8 * kk);
+        split_tf32(f0.x, ah[0], al[0]);
+        split_tf32(f1.x, ah[1], al[1]);
+        split_tf32(f0.y, ah[2], al[2]);
+        split_tf32(f1.y, ah[3], al[3]);
+      }
+#pragma unroll
+      for (int nn = 0; nn < NT; ++nn) {
+        const uint4 kf =
+            *reinterpret_cast<const uint4*>(sk + (8 * nn + g) * LY::LDSK + 4 * (4 * kk + t));
+        mma_3xtf32(s[nn], sl[nn], ah, al, kf);
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nn][i] += sl[nn][i];
+
+    float corr[2];
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > wr0))
+      sm.template tile<true>(s, corr, k0, row_a, t, Sk, causal);
+    else
+      sm.template tile<false>(s, corr, k0, row_a, t, Sk, causal);
+
+    // P as tf32 A fragments in registers: k-step jj is n-tile jj of S, and
+    // its position t is key 8jj + 2t, t + 4 is 8jj + 2t + 1 (what this
+    // thread holds); V's B fragment follows: keys 8jj + 2t and + 1, one
+    // pair of SV
+    uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj) {
+      split_tf32(s[jj][0], ph[jj][0], pl[jj][0]);
+      split_tf32(s[jj][2], ph[jj][1], pl[jj][1]);
+      split_tf32(s[jj][1], ph[jj][2], pl[jj][2]);
+      split_tf32(s[jj][3], ph[jj][3], pl[jj][3]);
+    }
+    // O = O * corr + P V, CH n-tiles at a time: the tile's products
+    // summed afresh (hi.hi and the small ones apart, two chains an n-tile)
+    // and added to O in one rounded FFMA, so that the tensor cores'
+    // truncating sums never run over more than one tile of keys
+#pragma unroll
+    for (int c = 0; c < KS; c += CH) {
+      float pv[CH][4], pvl[CH][4];
+#pragma unroll
+      for (int nn = 0; nn < CH; ++nn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[nn][i] = pvl[nn][i] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+        for (int nn = 0; nn < CH; ++nn) {
+          const uint4 vf = *reinterpret_cast<const uint4*>(sv + (4 * jj + t) * LY::LDSV +
+                                                           4 * (8 * (c + nn) + g));
+          mma_3xtf32(pv[nn], pvl[nn], ph[jj], pl[jj], vf);
+        }
+#pragma unroll
+      for (int nn = 0; nn < CH; ++nn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[c + nn][i] = fmaf(acc[c + nn][i], corr[i >> 1], pv[nn][i] + pvl[nn][i]);
+    }
+  }
+
+  if (wr0 >= Sq) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = sm.l[r];
+    l += __shfl_xor_sync(FULL, l, 1);
+    l += __shfl_xor_sync(FULL, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int row = row_a + 8 * r;
+    if (row >= Sq) continue;
+    float* orow = o + b * os.b + (long long)row * os.s + h * os.h + 2 * t;
+#pragma unroll
+    for (int nn = 0; nn < KS; ++nn)
+      *reinterpret_cast<float2*>(orow + 8 * nn) =
+          make_float2(acc[nn][2 * r] * inv, acc[nn][2 * r + 1] * inv);
   }
 }
 
-template <typename T, typename Kern>
-int launch(Kern kern, size_t bytes, const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KVH, int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-           float scale, float softcap, int causal, cudaStream_t stream) {
+template <int D, int NW, bool CAP>
+int launch_f32_nw(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
+                  int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                  float softcap, int causal, cudaStream_t stream) {
+  using LY = F32Layout<D, NW>;
+  const int nqt = (Sq + LY::BQ - 1) / LY::BQ;
+  const long long tiles = (long long)nqt * B * H;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  auto kern = fa_fwd_f32<D, NW, CAP>;
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)LY::BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kern<<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, H / KVH, Sq, Sk, qs, ks, vs, os, scale, softcap, causal);
+  kern<<<(unsigned)tiles, LY::THREADS, LY::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), B * H, H, H / KVH, nqt, Sq, Sk, qs, ks, vs, os, scale, softcap,
+      causal);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
+               int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+               float softcap, int causal, cudaStream_t stream) {
+  using DS = F32Design<D>;
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const bool small = (long long)((Sq + 16 * DS::NW - 1) / (16 * DS::NW)) * B * H < sms;
+#define F32_ARGS q, k, v, o, B, H, KVH, Sq, Sk, qs, ks, vs, os, scale, softcap, causal, stream
+  if (softcap > 0.f)
+    return small ? launch_f32_nw<D, DS::NW_SMALL, true>(F32_ARGS)
+                 : launch_f32_nw<D, DS::NW, true>(F32_ARGS);
+  return small ? launch_f32_nw<D, DS::NW_SMALL, false>(F32_ARGS)
+               : launch_f32_nw<D, DS::NW, false>(F32_ARGS);
+#undef F32_ARGS
 }
 
 }  // namespace
@@ -1129,18 +1436,14 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
                           long long ksh, long long vsb, long long vss, long long vsh,
                           long long osb, long long oss, long long osh, float scale,
                           float softcap, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Sk <= 0 ||
-      (dtype == 0 && (long long)B * H > 65535))
+  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_ARGS q, k, v, o, B, H, KVH, Sq, Sk, qs, ks, vs, os, scale, softcap, causal, st
-  if (dtype == 0 && D == 64)
-    return launch<float>(fa_fwd_f32<64>, F32Layout<64>::BYTES, FA_ARGS);
-  if (dtype == 0 && D == 96)
-    return launch<float>(fa_fwd_f32<96>, F32Layout<96>::BYTES, FA_ARGS);
-  if (dtype == 0 && D == 128)
-    return launch<float>(fa_fwd_f32<128>, F32Layout<128>::BYTES, FA_ARGS);
+  if (dtype == 0 && D == 64) return launch_f32<64>(FA_ARGS);
+  if (dtype == 0 && D == 96) return launch_f32<96>(FA_ARGS);
+  if (dtype == 0 && D == 128) return launch_f32<128>(FA_ARGS);
   if (dtype == 1 && D == 64) return launch_hopper<64>(FA_ARGS);
   if (dtype == 1 && D == 96) return launch_hopper<96>(FA_ARGS);
   if (dtype == 1 && D == 128) return launch_hopper<128>(FA_ARGS);

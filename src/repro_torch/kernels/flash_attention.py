@@ -11,8 +11,9 @@ model check the layout that the card needs.
 
 The bf16 kernel loads q, k and v by TMA through tensor maps that it
 builds over that layout from these strides (rank 4: D, heads, S, B); the
-f32 kernel walks the same strides with plain loads. A dim of size 1 is
-never stepped, and is given a stride of 16 bytes, as TMA needs.
+f32 kernel (3xTF32 products on the tensor cores) walks the same strides
+with ``cp.async`` and vector loads. A dim of size 1 is never stepped, and
+is given a stride of 16 bytes, as TMA needs. Neither limits B·H.
 
 Head dims 64, 96 and 128 are taken; the bf16 kernel loads a row of 96 as
 three 32-column boxes, with no padding columns and no copy here.

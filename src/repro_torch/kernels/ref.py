@@ -47,7 +47,9 @@ def flash_attention_check(out, q, k, v, *, causal=True, softcap=0.0):
     """Errors of ``out``, a kernel's result on (q, k, v), against
     ``flash_attention_ref`` on the same values in f32: ``max_abs_err``,
     ``rel_err`` = ‖out − ref‖_F / ‖ref‖_F, and ``row_rel_err``, the largest
-    such ratio over the rows of D values. Returns (errors, within tolerance)."""
+    such ratio over the rows of D values; for an f32 ``out`` also
+    ``tol_ratio``, the largest |out − ref| / (atol + rtol·|ref|), which
+    ``allclose`` holds to 1. Returns (errors, within tolerance)."""
     want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
                                softcap=softcap)
     d = out.float() - want
@@ -56,6 +58,7 @@ def flash_attention_check(out, q, k, v, *, causal=True, softcap=0.0):
             "rel_err": (d.norm() / want.norm().clamp_min(1e-30)).item(),
             "row_rel_err": rows.max().item()}
     if out.dtype == torch.float32:
+        errs["tol_ratio"] = (d.abs() / (FLASH_F32_TOL * (1 + want.abs()))).max().item()
         ok = bool(torch.allclose(out, want, atol=FLASH_F32_TOL, rtol=FLASH_F32_TOL))
     else:
         ok = (errs["rel_err"] <= FLASH_BF16_REL_TOL

@@ -9,8 +9,11 @@ Inputs are made with numpy from a seed and handed to both packages.
 Against JAX, tolerances are those of ``tests/test_kernels.py``: 2e-5 in
 f32, 2e-2 in bf16 (one bf16 rounding of the output either side). On the
 card, a bf16 kernel is held tighter, relative to the f32 plain output over
-the tensor and over every row (``ref.flash_attention_check``).
+the tensor and over every row (``ref.flash_attention_check``). The f32
+kernel's arithmetic (3xTF32 products on the tensor cores) is emulated on
+the CPU and held against the Pallas kernel at the f32 tolerance.
 """
+import math
 from collections import Counter
 
 import numpy as np
@@ -148,6 +151,78 @@ def test_flash_bf16_check_holds_late_rows():
     late = _flash_bf16_emulated(q, k, v, lambda qp, kp: (qp >= S // 2) & (kp == 100))
     errs, ok = ref.flash_attention_check(late, q, k, v, causal=True)
     assert not ok and errs["row_rel_err"] > 10 * ref.FLASH_BF16_ROW_REL_TOL, errs
+
+
+def _tf32(x):
+    """f32 rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: half a tf32
+    ulp added to the magnitude bits, the low 13 bits cleared."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the f32 kernel forms it on the tensor cores: each operand
+    split into hi = tf32(x) and lo = tf32(x - hi), the two small products
+    and then hi·hi, with f32 sums (lo·lo is left out)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _flash_3xtf32_emulated(q, k, v, *, causal=True, softcap=0.0, mm=_mm_3xtf32):
+    """Attention in f32 as the f32 kernel computes it: Q Kᵀ and P V through
+    ``mm`` (q, k, P and v split into tf32 hi and lo), the softcap as tanh of
+    the scaled score, the causal mask's -1e30 fill, the softmax in base 2
+    with scale·log₂e folded into one multiply-add, and the division by the
+    row sum clamped at 1e-30."""
+    D = q.shape[-1]
+    qp, kp = torch.arange(q.shape[1])[:, None], torch.arange(k.shape[1])[None, :]
+    s = mm(q.permute(0, 2, 3, 1, 4), k.permute(0, 2, 3, 1)[:, :, None])  # (B,KV,G,Sq,Sk)
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    if softcap:
+        s = torch.tanh(s * (scale / softcap))
+    mul = (torch.tensor(softcap, dtype=torch.float32) if softcap else scale) * math.log2(math.e)
+    if causal:
+        s = torch.where(qp >= kp, s, torch.full_like(s, -1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s * mul - m * mul)
+    o = mm(p, v.permute(0, 2, 1, 3)[:, :, None]) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.permute(0, 3, 1, 2, 4)
+
+
+# the f32 shapes of test_flash_matches_pallas (causal and not), FAMILY_HEADS,
+# and softcap 30 at grok-1's group 6 with q × 1 and q × 8
+_3XTF32_CASES = (
+    [(128, KV, G, D, causal, 0.0, 1.0) for KV, G, D in ((2, 1, 64), (1, 2, 128), (2, 4, 64))
+     for causal in (True, False)]
+    + [(128, KV, G, D, True, cap, 1.0) for KV, G, D, cap in FAMILY_HEADS]
+    + [(128, 1, 6, 128, True, 30.0, qs) for qs in (1.0, 8.0)])
+
+
+@pytest.mark.parametrize("S,KV,G,D,causal,softcap,qscale", _3XTF32_CASES)
+def test_flash_3xtf32_emulation_matches_pallas(S, KV, G, D, causal, softcap, qscale):
+    """3xTF32, the f32 kernel's products, holds the f32 tolerance against
+    the Pallas kernel (interpret mode) before any card runs it."""
+    q, k, v = _qkv(2, S, S, KV, G, D, seed=S + G + D)
+    (jq, jk, jv), (tq, tk, tv) = _both((q * qscale, k, v), torch.float32)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, softcap=softcap,
+                                block_q=64, block_kv=64)
+    got = _flash_3xtf32_emulated(tq, tk, tv, causal=causal, softcap=softcap)
+    assert got.dtype == torch.float32 and got.shape == (2, S, KV, G, D)
+    _close(got, want, 2e-5)
+
+
+def test_flash_1xtf32_misses_f32_tolerance():
+    """One TF32 product (about three digits) does not hold 2e-5: what the
+    3xTF32 emulation's pass above is worth."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 128, 128, 1, 2, 128, seed=7))
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    assert torch.allclose(_flash_3xtf32_emulated(q, k, v), want, atol=2e-5, rtol=2e-5)
+    one = _flash_3xtf32_emulated(q, k, v, mm=_mm_1xtf32)
+    assert not torch.allclose(one, want, atol=2e-5, rtol=2e-5)
 
 
 def test_flash_wrapper_checks_and_strides():
@@ -446,6 +521,44 @@ def test_flash_bf16_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap, qsca
     got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=causal, softcap=softcap)
     assert fa.LAUNCHES == before + 1
+    assert ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,KV,G,D,causal,softcap,qscale", [
+    (1000, 1000, 2, 2, 128, True, 0.0, 1.0),    # ragged last q tile and K/V tile
+    (1000, 1000, 2, 2, 64, False, 0.0, 1.0),
+    (37, 150, 2, 2, 64, True, 0.0, 1.0),        # Sq < Sk
+    (150, 37, 2, 2, 128, True, 0.0, 1.0),       # Sq > Sk
+    (300, 300, 1, 8, 64, True, 0.0, 1.0),       # G = 8
+    (1000, 1000, 2, 2, 96, False, 0.0, 1.0),    # D 96, non-causal
+    (700, 700, 2, 6, 128, True, 30.0, 8.0),     # softcap, q scaled by 8: scores past the cap
+    (2304, 2304, 2, 2, 64, True, 0.0, 1.0),     # the card-against-CPU check's shape
+])
+def test_flash_f32_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap, qscale):
+    """The f32 kernel (3xTF32) against the plain version at its tolerance."""
+    _need_cuda()
+    q, k, v = _qkv(2, Sq, Sk, KV, G, D, seed=Sq + Sk + G)
+    q, k, v = (torch.from_numpy(a).to("cuda") for a in (q * qscale, k, v))
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
+    errs, ok = ref.flash_attention_check(got, q, k, v, causal=causal, softcap=softcap)
+    assert fa.LAUNCHES == before + 1
+    assert ok, errs
+
+
+@pytest.mark.gpu
+def test_flash_f32_kernel_past_65535_heads_on_card():
+    """B·H = 65,540 (past a grid's y extent, which the f32 kernel once
+    refused): every (batch, head) is computed."""
+    _need_cuda()
+    g = torch.Generator("cuda").manual_seed(3)
+    B, S, KV, G, D = 2, 64, 16385, 2, 64
+    q = torch.randn((B, S, KV, G, D), generator=g, device="cuda")
+    k = torch.randn((B, S, KV, D), generator=g, device="cuda")
+    v = torch.randn((B, S, KV, D), generator=g, device="cuda")
+    got = ops.flash_attention(q, k, v, causal=True)
+    errs, ok = ref.flash_attention_check(got, q, k, v, causal=True)
     assert ok, errs
 
 
