@@ -12,55 +12,64 @@ path's store (``chip_smoke.serving_store``: 900 chunks behind 4 storage
 engines) and traces one fetch of it (chunk reads, the merge of the
 arrival runs, the unpack onto the card).
 For each it prints one JSON line: host wall time (ms, ending in a device
-synchronise), device busy time (sum of kernel self times, ms), the
-device's idle share, the number of kernel launches, and the kernels that
-took the most device time, and the copies between host and device (count
-and device ms). The trace itself adds host overhead, so wall
-times here run above ``chip_smoke.py``'s. Needs a CUDA device.
+synchronise), device busy time (ms, a union of the device operations'
+intervals, so kernels that overlap count once), the device's idle share
+of the traced call, the number of kernel launches, the kernels that took
+the most device time, the copies between host and device (count and
+device ms), and, where the program's spans (``repro_torch.spans``) are in
+the trace, device ms, launches and idle ms by the innermost span open at
+each launch (``bench/spans.py``). The trace itself adds host overhead, so
+wall times here run above ``chip_smoke.py``'s. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402  (the main path's shapes, model and prompt)
-
-
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
+from bench import spans  # noqa: E402
+from bench import trace as trace_mod  # noqa: E402
 
 
 def trace(label, fn):
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
+        with record_function("bench.window"):  # the window bench.trace reads
+            out = fn()
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: an aten op's own entry repeats its kernels' time
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0]
-    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=_device_us, reverse=True)[:12]
-    copies = [e for e in kernels if "Memcpy" in e.key]
+    path = trace_mod.export(prof)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    t = trace_mod.parse(events, n_requests=1)
+    busy_ms = t.busy_s() * 1e3
+    copies = defaultdict(lambda: {"count": 0, "device_ms": 0.0})
+    for o in t.device:
+        if o.cat == "gpu_memcpy":
+            copies[o.name[:40]]["count"] += 1
+            copies[o.name[:40]]["device_ms"] += (o.end - o.start) * 1e3
+    by_span = spans.from_events(events)
     print(json.dumps({
         "trace": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "launches": sum(e.count for e in kernels),
-        "copies": {e.key[:40]: {"count": e.count, "device_ms": _device_us(e) / 1e3}
-                   for e in copies},
-        "top": [{"name": e.key[:80], "count": e.count, "device_ms": _device_us(e) / 1e3}
-                for e in top]}), flush=True)
+        "device_idle_share": 1.0 - t.busy_s() / t.window_s,
+        "launches": len(t.kernels()), "copies": copies,
+        "top": [{"name": name[:80], "device_ms": s * 1e3} for name, s in t.top_ops(12)],
+        "spans": [{"span": r["span"], "device_ms": r["device_s"] * 1e3,
+                   "launches": r["launches"], "idle_ms": r["idle_s"] * 1e3}
+                  for r in by_span.table()] if by_span else None}), flush=True)
     return out
 
 

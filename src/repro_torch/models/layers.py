@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops
 from repro_torch.models.schema import ParamSpec
 from repro_torch.sharding import current_rules, lac, lac_split, per_shard, split_first, use_rules
+from repro_torch.spans import span
 
 FLASH_THRESHOLD = 2048  # einsum attention up to here; chunked twin or kernel above
 FLASH_BLOCK_KV = 512
@@ -310,17 +311,19 @@ def apply_attention(
     key/value into the cache buffers in place (the JAX version returns
     updated copies)."""
     B, S, _ = x.shape
-    q = _project(x, p["wq"].to(x.dtype))  # (B,S,KV,G,hd)
-    src = x if kv_src is None else kv_src
-    k = _project(src, p["wk"].to(x.dtype))  # (B,Sk,KV,hd)
-    v = _project(src, p["wv"].to(x.dtype))
-    if "qnorm" in p:
-        q = apply_head_norm(p["qnorm"], q)
-        k = apply_head_norm(p["knorm"], k)
+    with span("attention.qkv"):
+        q = _project(x, p["wq"].to(x.dtype))  # (B,S,KV,G,hd)
+        src = x if kv_src is None else kv_src
+        k = _project(src, p["wk"].to(x.dtype))  # (B,Sk,KV,hd)
+        v = _project(src, p["wv"].to(x.dtype))
+        if "qnorm" in p:
+            q = apply_head_norm(p["qnorm"], q)
+            k = apply_head_norm(p["knorm"], k)
     if kv_src is None and cfg.rotary_pct > 0:  # self-attention: RoPE
-        cos, sin = rope_freqs(cfg, positions)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        with span("attention.rope"):
+            cos, sin = rope_freqs(cfg, positions)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
     # a decode cache holds its heads whole (its sequence takes the model
     # axis): a step's q, k and v, a few bytes a row, are placed to match,
     # where split heads would flatten with the batch into a strided shard
@@ -336,43 +339,49 @@ def apply_attention(
             raise ValueError("decode takes one token per sequence and a cache")
         idx = cache["len"]  # (B,) current lengths
         kc, vc = cache["k"], cache["v"]
-        _write_slot(kc, idx, k[:, 0])
-        _write_slot(vc, idx, v[:, 0])
-        new_cache = {"k": kc, "v": vc, "len": idx + 1}
-        out = _einsum_attention(
-            q, kc, vc, causal=False, softcap=cfg.attn_logit_softcap, kv_len=idx + 1
-        )
+        with span("attention.cache"):
+            _write_slot(kc, idx, k[:, 0])
+            _write_slot(vc, idx, v[:, 0])
+            new_cache = {"k": kc, "v": vc, "len": idx + 1}
+        with span("attention.core"):
+            out = _einsum_attention(
+                q, kc, vc, causal=False, softcap=cfg.attn_logit_softcap, kv_len=idx + 1
+            )
     else:
         if mode == "prefill":
-            L = k.shape[1] + (max_len or S) - S
-            kc = k.new_zeros((B, L) + tuple(k.shape[2:]))
-            vc = v.new_zeros((B, L) + tuple(v.shape[2:]))
-            kc[:, :k.shape[1]] = k
-            vc[:, :v.shape[1]] = v
-            new_cache = {
-                "k": kc,
-                "v": vc,
-                "len": torch.full((B,), S, dtype=torch.int32, device=x.device),
-            }
+            with span("attention.cache"):
+                L = k.shape[1] + (max_len or S) - S
+                kc = k.new_zeros((B, L) + tuple(k.shape[2:]))
+                vc = v.new_zeros((B, L) + tuple(v.shape[2:]))
+                kc[:, :k.shape[1]] = k
+                vc[:, :v.shape[1]] = v
+                new_cache = {
+                    "k": kc,
+                    "v": vc,
+                    "len": torch.full((B,), S, dtype=torch.int32, device=x.device),
+                }
         records = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                                or v.requires_grad)
-        if S > FLASH_THRESHOLD and kv_src is None:
-            # the twin where autograd records, and for a decoder's train-mode
-            # forward (causal) even where it does not; non-causal
-            # self-attention is the encoder's, which JAX runs in train mode
-            # inside every prefill: there the forward-only kernel serves it
-            if records or (mode == "train" and causal):
-                out = _per_shard(_flash_attention_qchunked, q, k, v, causal=causal,
-                                 softcap=cfg.attn_logit_softcap)
+        with span("attention.core"):
+            if S > FLASH_THRESHOLD and kv_src is None:
+                # the twin where autograd records, and for a decoder's
+                # train-mode forward (causal) even where it does not;
+                # non-causal self-attention is the encoder's, which JAX runs
+                # in train mode inside every prefill: there the forward-only
+                # kernel serves it
+                if records or (mode == "train" and causal):
+                    out = _per_shard(_flash_attention_qchunked, q, k, v, causal=causal,
+                                     softcap=cfg.attn_logit_softcap)
+                else:
+                    out = ops.flash_attention(q, k, v, causal=causal,
+                                              softcap=cfg.attn_logit_softcap)
+                scan_flops = attention_scan_flops(B, S, S, cfg.num_heads, cfg.head_dim, causal)
             else:
-                out = ops.flash_attention(q, k, v, causal=causal,
-                                          softcap=cfg.attn_logit_softcap)
-            scan_flops = attention_scan_flops(B, S, S, cfg.num_heads, cfg.head_dim, causal)
-        else:
-            out = _per_shard(_einsum_attention, q, k, v, causal=causal,
-                             softcap=cfg.attn_logit_softcap)
-    out = lac(out, "batch", None, "kv_heads", "q_per_kv", None)
-    y = _heads_out(out, p["wo"].to(x.dtype))
+                out = _per_shard(_einsum_attention, q, k, v, causal=causal,
+                                 softcap=cfg.attn_logit_softcap)
+    with span("attention.out"):
+        out = lac(out, "batch", None, "kv_heads", "q_per_kv", None)
+        y = _heads_out(out, p["wo"].to(x.dtype))
     return y, new_cache, scan_flops
 
 

@@ -33,6 +33,7 @@ from repro_torch.models.layers import apply_norm, norm_spec, remat
 from repro_torch.models.schema import (ParamSpec, abstract_tree, axes_tree, init_tree,
                                        param_count)
 from repro_torch.sharding import lac, lac_grad
+from repro_torch.spans import span
 from repro_torch.tree import tree_map
 
 
@@ -91,21 +92,23 @@ class Model:
 
     # ------------------------------------------------------------ forward
     def _embed(self, params, tokens):
-        # gather, then cast: the same values as casting the table first
-        x = embed_lookup(tokens, params["embed"])
-        return lac(x, "batch", "act_seq", "embed_shard").to(self.cfg.compute_dtype)
+        with span("model.embed"):
+            # gather, then cast: the same values as casting the table first
+            x = embed_lookup(tokens, params["embed"])
+            return lac(x, "batch", "act_seq", "embed_shard").to(self.cfg.compute_dtype)
 
     def _head(self, params, x):
         cfg = self.cfg
-        x = apply_norm(params["final_ln"], x)
-        if cfg.tie_embeddings:
-            logits = x @ params["embed"].to(cfg.compute_dtype).T
-        else:
-            logits = x @ params["lm_head"].to(cfg.compute_dtype)
-        # the product's gradient returns as the product made it, whole along
-        # the sequence, not at the logits' placements (``lac_grad``)
-        logits = lac_grad(logits, "batch", "seq", "logit_vocab")
-        return lac(logits, "batch", "act_seq", "logit_vocab")
+        with span("model.head"):
+            x = apply_norm(params["final_ln"], x)
+            if cfg.tie_embeddings:
+                logits = x @ params["embed"].to(cfg.compute_dtype).T
+            else:
+                logits = x @ params["lm_head"].to(cfg.compute_dtype)
+            # the product's gradient returns as the product made it, whole
+            # along the sequence, not at the logits' placements (``lac_grad``)
+            logits = lac_grad(logits, "batch", "seq", "logit_vocab")
+            return lac(logits, "batch", "act_seq", "logit_vocab")
 
     def encode(self, params, frames):
         """frames (B,F,D) stub embeddings → (enc_out (B,F,D), aux). The
@@ -155,11 +158,12 @@ class Model:
                 raise ValueError("decode needs a cache")
             positions = cache["pos"][:, None]  # (B,1)
 
-        x, new_stack_cache, saux = T.apply_stack(
-            params["stack"], self.cfg, x, positions=positions,
-            caches=cache["stack"] if cache is not None else None,
-            mode=mode, enc_out=enc_out, max_len=max_len,
-        )
+        with span("model.stack"):
+            x, new_stack_cache, saux = T.apply_stack(
+                params["stack"], self.cfg, x, positions=positions,
+                caches=cache["stack"] if cache is not None else None,
+                mode=mode, enc_out=enc_out, max_len=max_len,
+            )
         aux.update(saux)
         new_cache = None
         if mode == "prefill":

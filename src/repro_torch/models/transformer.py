@@ -37,6 +37,7 @@ from repro_torch.models import xlstm as X
 from repro_torch.models.accounting import add_scan_flops
 from repro_torch.models.schema import ParamSpec
 from repro_torch.sharding import is_axes, lac, lac_grad
+from repro_torch.spans import span
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -204,7 +205,8 @@ def _sublayer_input(p_norm: dict, x: torch.Tensor) -> torch.Tensor:
     ("seq"): the normed activation is gathered here once, as sequence
     parallelism does, where a DTensor projection would otherwise merge the
     batch and sequence shards into one dim that it cannot split again."""
-    return lac(L.apply_norm(p_norm, x), "batch", "seq", None)
+    with span("layer.norm"):
+        return lac(L.apply_norm(p_norm, x), "batch", "seq", None)
 
 
 def _residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -248,10 +250,15 @@ def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
         out, new_cache = apply(p[kind], cfg, h, cache=cache, mode=mode)
         x = _residual(x, out)
     if "moe" in p:
-        y, aux = M.apply_moe(p["moe"], cfg, _sublayer_input(p["ln2"], x))
+        h = _sublayer_input(p["ln2"], x)
+        with span("mlp"):
+            y, aux = M.apply_moe(p["moe"], cfg, h)
         x = _residual(x, y)
     elif "mlp" in p:
-        x = _residual(x, L.apply_mlp(p["mlp"], cfg, _sublayer_input(p["ln2"], x)))
+        h = _sublayer_input(p["ln2"], x)
+        with span("mlp"):
+            y = L.apply_mlp(p["mlp"], cfg, h)
+        x = _residual(x, y)
     return x, new_cache, aux
 
 

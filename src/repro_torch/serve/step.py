@@ -8,11 +8,13 @@ import torch
 
 from repro_torch.models.model import Model
 from repro_torch.sharding import lac
+from repro_torch.spans import span
 
 
 def make_prefill_step(model: Model, max_len: int):
     def prefill_step(params, batch):
-        logits, cache, _ = model.apply(params, batch, mode="prefill", max_len=max_len)
+        with span("serve.prefill"):
+            logits, cache, _ = model.apply(params, batch, mode="prefill", max_len=max_len)
         return logits, cache
 
     return prefill_step
