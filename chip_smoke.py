@@ -426,6 +426,14 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 versions exact
     torch.backends.cudnn.allow_tf32 = False
     results = {}
+    # the prefills of the benchmark's short-batch cells (bench/traffic/
+    # short_batch.json), which take the kernel below FLASH_THRESHOLD: one
+    # block of lengths, B = 16,384 // S, causal, D 128, at glm4-9b's KV 2 ×
+    # G 16 and mistral-nemo-12b's KV 8 × G 4
+    short_batch = [(f"short_s{S}_g{G}_bf16", 16384 // S, S, KV, G, 128, torch.bfloat16,
+                    True, 0.0)
+                   for KV, G in ((2, 16), (8, 4))
+                   for S in (512, 640, 768, 896, 1152, 1280, 1536, 1920)]
     cases = [  # name, B, S, KV, G, D, dtype, causal, softcap[, q scale]
         ("prefill_bf16", BATCH, PROMPT, 8, 2, 128, torch.bfloat16, True, 0.0),
         ("small_f32", 2, 256, 2, 2, 64, torch.float32, True, 0.0),
@@ -470,7 +478,7 @@ def phase_kernels():
         ("small_path_f32", 2, SMALL_S, 2, 2, 64, torch.float32, True, 0.0),
         ("prefill_f32", BATCH, PROMPT, 8, 2, 128, torch.float32, True, 0.0),
         ("softcap_f32_q8", 1, 700, 2, 6, 128, torch.float32, True, 30.0, 8.0),
-    ]
+    ] + short_batch
     check_only = {"d96_ragged_noncausal_g2_bf16", "d96_kv1_g4_bf16", "d64_s193_g3_bf16",
                   "grok_g6_softcap_q8_bf16", "softcap_f32_q8"}
 
@@ -530,6 +538,10 @@ def phase_kernels():
         "library_ms", "ms_over_library", "bound_ms", "bound_by", "share_of_bound")}
         for name in ("small_f32", "softcap_f32", "noncausal_f32", "d96_f32", "small_path_f32",
                      "prefill_f32")}
+    fa_rec["short_batch_shapes"] = {name: {k: results[name].get(k) for k in (
+        "shape", "rel_err", "row_rel_err", "tol", "ms", "plain_ms", "library_ms",
+        "ms_over_library", "bound_ms", "bound_by", "share_of_bound")}
+        for name, *_ in short_batch}
 
     merged = {}
     g = torch.Generator("cuda").manual_seed(7)
@@ -1309,10 +1321,11 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
     the first call's out), then in memory, and with ``store`` cold and
     warm; tokens in range and equal across the runs, the prefill's
     last-position and every decode step's logits finite, flash once per
-    attention layer a prefill when that stack's length passes
-    ``layers.FLASH_THRESHOLD`` (else never) at the shape of its attention:
-    causal over the decoder's prompt (a vision model's frontend before it),
-    and for an encoder–decoder also non-causal over the encoder's frames;
+    attention layer a prefill where ``layers.prefill_takes_flash`` says the
+    decoder's prompt takes it (a vision model's frontend before it), causal
+    at the shape of its attention, and for an encoder–decoder also
+    non-causal over the encoder's frames where they pass
+    ``layers.FLASH_THRESHOLD``;
     every fetched cache the prefill's bit for bit, the merge once a fetch
     that arrived in more than one run. ``extra`` joins the prefill's batch
     (a vision or audio model's frontend). Returns the record."""
@@ -1329,7 +1342,7 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
     attn_kinds = sum(kind == "attn" for kind, _ in period_layout(cfg))
     heads = (cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim)
     want_calls = {}  # (q shape, softcap, causal) -> launches a prefill
-    if S > layers.FLASH_THRESHOLD:
+    if layers.prefill_takes_flash(S, cfg.head_dim, cfg.compute_dtype):
         want_calls[((BATCH, S) + heads, cfg.attn_logit_softcap, True)] = (
             n_periods(cfg) * attn_kinds)
     if cfg.encoder_decoder and cfg.frontend_seq > layers.FLASH_THRESHOLD:
@@ -2526,14 +2539,15 @@ def _dist_tokens(abstract, vocab, seed):
 
 
 def _flash_per_prefill(cfg, S: int) -> int:
-    """Flash launches of one prefill of S tokens: one an attention layer of
-    a stack longer than ``layers.FLASH_THRESHOLD`` (an encoder's over its
-    frames too), as ``arch_run`` counts them."""
+    """Flash launches of one prefill of S tokens: one an attention layer
+    where ``layers.prefill_takes_flash`` (an encoder's over frames past
+    ``layers.FLASH_THRESHOLD`` too), as ``arch_run`` counts them."""
     from repro_torch.models import layers
     from repro_torch.models.transformer import n_periods, period_layout
 
     attn = sum(kind == "attn" for kind, _ in period_layout(cfg))
-    n = n_periods(cfg) * attn if S > layers.FLASH_THRESHOLD else 0
+    n = (n_periods(cfg) * attn
+         if layers.prefill_takes_flash(S, cfg.head_dim, cfg.compute_dtype) else 0)
     if cfg.encoder_decoder and cfg.frontend_seq > layers.FLASH_THRESHOLD:
         n += n_periods(cfg, cfg.num_encoder_layers) * attn
     return n
@@ -2904,7 +2918,7 @@ def main() -> int:
          "bound_by": fa_rec["bound_by"], "library_ms": fa_rec["library_ms"],
          "ms_over_library": fa_rec["ms_over_library"],
          "share_of_bound": fa_rec["share_of_bound"], "arch_shapes": fa_rec["arch_shapes"],
-         "f32_shapes": fa_rec["f32_shapes"]},
+         "f32_shapes": fa_rec["f32_shapes"], "short_batch_shapes": fa_rec["short_batch_shapes"]},
         {"name": "merge", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/merge.cu",
          "replaces": "src/repro/kernels/kvmerge.py:24",

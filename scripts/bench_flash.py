@@ -14,10 +14,12 @@ the timed shapes (``ref.flash_attention_check``), and last times every
 build that passed, in turns (A B C C B A), at the shapes of ``TIMED``: the
 prefill shape (qwen3-1.7b: B 2, S 4,096, 8 kv heads × 2, D 128, causal),
 S 8,192, the archs' G 4 and G 16 (glm4-9b), grok-1's G 6 with softcap 30,
-phi-3-vision's D 96 (S 5,120, 32 heads), and the D 64 shapes of
+phi-3-vision's D 96 (S 5,120, 32 heads), the D 64 shapes of
 seamless-m4t-large-v2's encoder (non-causal, S 3,072) and decoder and of
-granite-moe-3b-a800m (G 3), and in f32 at ``TIMED_F32`` (``chip_smoke.py``'s
-f32 cases, their bound at 495 / 3 TFLOP/s: 3xTF32's three products),
+granite-moe-3b-a800m (G 3), and the ends of the benchmark's short-batch
+prefills (S 512 at B 32 and S 1,920 at B 8, G 16 and G 4), and in f32 at
+``TIMED_F32`` (``chip_smoke.py``'s f32 cases, their bound at 495 / 3
+TFLOP/s: 3xTF32's three products),
 beside ``F.scaled_dot_product_attention`` with ``enable_gqa`` (which has no
 softcap: the softcapped shapes are timed against the other builds only).
 The f32 checks also print ``tol_ratio``, the largest error over the
@@ -95,7 +97,11 @@ TIMED = [("prefill", 2, 4096, 8, 2, 128, True, 0.0), ("s8192", 1, 8192, 8, 2, 12
          ("phi3v_d96", 2, 5120, 32, 1, 96, True, 0.0),
          ("seamless_enc_d64", 2, 3072, 16, 1, 64, False, 0.0),
          ("seamless_dec_d64", 2, 4096, 16, 1, 64, True, 0.0),
-         ("granite_moe_d64", 2, 4096, 8, 3, 64, True, 0.0)]
+         ("granite_moe_d64", 2, 4096, 8, 3, 64, True, 0.0),
+         ("short_s512_g16", 32, 512, 2, 16, 128, True, 0.0),
+         ("short_s1920_g16", 8, 1920, 2, 16, 128, True, 0.0),
+         ("short_s512_g4", 32, 512, 8, 4, 128, True, 0.0),
+         ("short_s1920_g4", 8, 1920, 8, 4, 128, True, 0.0)]
 # chip_smoke.py's f32 cases: its four test shapes, the card-against-CPU
 # check's (small_path) and qwen3-1.7b's prefill in f32
 TIMED_F32 = [("small_f32", 2, 256, 2, 2, 64, True, 0.0),
@@ -104,7 +110,6 @@ TIMED_F32 = [("small_f32", 2, 256, 2, 2, 64, True, 0.0),
              ("d96_f32", 1, 512, 2, 2, 96, True, 0.0),
              ("small_path_f32", 2, 2304, 2, 2, 64, True, 0.0),
              ("prefill_f32", 2, 4096, 8, 2, 128, True, 0.0)]
-
 
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)

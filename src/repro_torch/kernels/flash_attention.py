@@ -43,6 +43,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 96, 128)
 
 
+def takes(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes q, k and v of this head dim, all three in
+    this dtype (the model's dispatch asks before it calls)."""
+    return head_dim in _HEAD_DIMS and dtype in _DTYPES
+
+
 def _fn():
     return bind(build.load("flash_attention"))
 

@@ -30,6 +30,12 @@ def flash_attention(q, k, v, *, causal=True, softcap=0.0, block_q=256, block_kv=
     return _fa.flash_attention(q, k, v, causal=causal, softcap=softcap)
 
 
+def flash_takes(head_dim, dtype):
+    """Whether ``flash_attention`` takes q, k and v of this head dim, all
+    three in this dtype."""
+    return _fa.takes(head_dim, dtype)
+
+
 def merge_sorted(a_keys, a_vals, b_keys, b_vals):
     """Merge two sorted (key, payload) runs of ANY lengths, empty runs and
     float ``+inf`` keys included. Ties take a first (stable). Returns

@@ -3,17 +3,24 @@ LayerNorm, RoPE, GQA self-attention (causal or not; train/prefill/decode),
 decoder→encoder cross-attention, the swiglu and gelu MLPs.
 
 Self-attention has three paths:
-  * einsum attention (plain torch) for seq <= FLASH_THRESHOLD and all decode;
-  * above it, while autograd records, and for causal attention in train
-    mode, the chunked online-softmax twin ``_flash_attention_qchunked``
-    (plain torch, each KV-block step rematerialised), which is what the JAX
-    model runs there;
-  * above it otherwise, the Hopper flash-attention kernel
-    (``kernels.ops.flash_attention``), which is forward only: a prefill's
-    attention, and the encoder's non-causal attention, which JAX runs in
-    train mode inside every prefill.
+  * the Hopper flash-attention kernel (``kernels.ops.flash_attention``),
+    which is forward only, for a prefill's self-attention at any length
+    where autograd does not record and the kernel takes the head dim
+    (64, 96, 128) and dtype (q, k, v all bf16 or all f32), and above
+    FLASH_THRESHOLD for every forward-only prefill and for the encoder's
+    non-causal attention, which JAX runs in train mode inside every
+    prefill;
+  * above FLASH_THRESHOLD, while autograd records, and for causal
+    attention in train mode, the chunked online-softmax twin
+    ``_flash_attention_qchunked`` (plain torch, each KV-block step
+    rematerialised), which is what the JAX model runs there;
+  * einsum attention (plain torch) otherwise: all decode (its ``kv_len``
+    mask over the cache), cross-attention, train mode up to the
+    threshold, and a prefill up to it at a head dim or dtype the kernel
+    does not take.
 Above the threshold the JAX package declares the chunked scan's FLOPs
-(``attention_scan_flops``); the port declares the same whichever path runs.
+(``attention_scan_flops``); the port declares the same whichever path
+runs, and 0 up to it, as JAX does.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from repro_torch.models.schema import ParamSpec
 from repro_torch.sharding import current_rules, lac, lac_split, per_shard, split_first, use_rules
 from repro_torch.spans import span
 
-FLASH_THRESHOLD = 2048  # einsum attention up to here; chunked twin or kernel above
+FLASH_THRESHOLD = 2048  # einsum up to here bar short prefills; chunked twin or kernel above
 FLASH_BLOCK_KV = 512
 FLASH_BLOCK_Q = 4096  # q-chunk above this Sq (bounds the (Sq, block_kv) logits)
 NEG_INF = -1e30
@@ -295,6 +302,15 @@ def attention_scan_flops(B, Sq, Sk, H, D, causal: bool) -> float:
     return 4.0 * B * H * area * D
 
 
+def prefill_takes_flash(S: int, head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether a prefill's self-attention over S tokens, forward only with
+    q, k and v all in ``dtype``, runs the flash kernel: past FLASH_THRESHOLD
+    always, and at any length where the kernel takes the head dim and dtype
+    (the einsum path writes B·H·S² f32 logits and reads them back several
+    times)."""
+    return S > FLASH_THRESHOLD or ops.flash_takes(head_dim, dtype)
+
+
 def apply_attention(
     p: dict,
     cfg,
@@ -362,23 +378,27 @@ def apply_attention(
                 }
         records = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                                or v.requires_grad)
+        long = S > FLASH_THRESHOLD and kv_src is None
+        short_kernel = (mode == "prefill" and kv_src is None and not records
+                        and q.dtype == k.dtype == v.dtype
+                        and prefill_takes_flash(S, q.shape[-1], q.dtype))
         with span("attention.core"):
-            if S > FLASH_THRESHOLD and kv_src is None:
+            if long and (records or (mode == "train" and causal)):
                 # the twin where autograd records, and for a decoder's
-                # train-mode forward (causal) even where it does not;
-                # non-causal self-attention is the encoder's, which JAX runs
-                # in train mode inside every prefill: there the forward-only
-                # kernel serves it
-                if records or (mode == "train" and causal):
-                    out = _per_shard(_flash_attention_qchunked, q, k, v, causal=causal,
-                                     softcap=cfg.attn_logit_softcap)
-                else:
-                    out = ops.flash_attention(q, k, v, causal=causal,
-                                              softcap=cfg.attn_logit_softcap)
-                scan_flops = attention_scan_flops(B, S, S, cfg.num_heads, cfg.head_dim, causal)
+                # train-mode forward (causal) even where it does not
+                out = _per_shard(_flash_attention_qchunked, q, k, v, causal=causal,
+                                 softcap=cfg.attn_logit_softcap)
+            elif long or short_kernel:
+                # past the threshold also non-causal self-attention, the
+                # encoder's, which JAX runs in train mode inside every
+                # prefill: there the forward-only kernel serves it
+                out = ops.flash_attention(q, k, v, causal=causal,
+                                          softcap=cfg.attn_logit_softcap)
             else:
                 out = _per_shard(_einsum_attention, q, k, v, causal=causal,
                                  softcap=cfg.attn_logit_softcap)
+            if long:
+                scan_flops = attention_scan_flops(B, S, S, cfg.num_heads, cfg.head_dim, causal)
     with span("attention.out"):
         out = lac(out, "batch", None, "kv_heads", "q_per_kv", None)
         y = _heads_out(out, p["wo"].to(x.dtype))

@@ -13,9 +13,9 @@ and rtol, as ``tests/test_torch_families.py`` uses):
     CPU) and its own twin while it does;
   * seamless-m4t-large-v2:smoke with its encoder past the flash threshold
     (2,304 frames): the encoder's attention calls
-    ``ops.flash_attention(causal=False)`` once a layer in a prefill and
-    never in a training forward, which runs the twin; the prefill's logits
-    equal JAX's.
+    ``ops.flash_attention(causal=False)`` once a layer in a prefill (the
+    decoder's short prompt the causal one) and never in a training
+    forward, which runs the twin; the prefill's logits equal JAX's.
 
 The whole arch (train, prefill and decode, loss, an AdamW step,
 ``generate``, the stacked layout, the store's cache key) is in
@@ -174,8 +174,9 @@ def test_attention_over_a_kv_source_matches_jax(mode):
 def test_encoder_attention_launches_flash_only_when_no_gradient_is_recorded():
     """seamless:smoke with 2,304 stub frames: in a prefill (no gradient
     recorded) every encoder layer calls ``ops.flash_attention`` with
-    ``causal=False`` and none runs the twin; the decoder's 16 tokens stay
-    under the threshold; the logits equal JAX's. In a training forward,
+    ``causal=False`` and none runs the twin; the decoder's 16 tokens, under
+    the threshold, take it causally at a head dim it takes (64); the logits
+    equal JAX's. In a training forward,
     which records, the encoder runs the twin once a layer and never the
     flash entry point; no kernel launches on the CPU."""
     F = L.FLASH_THRESHOLD + 256
@@ -205,7 +206,9 @@ def test_encoder_attention_launches_flash_only_when_no_gradient_is_recorded():
         with torch.inference_mode():
             tl, _, _ = tm.apply(tp, pre, mode="prefill", max_len=24)
         shape = (1, F, tc.num_kv_heads, tc.q_per_kv, tc.head_dim)
-        assert flash == [(shape, False)] * tc.num_encoder_layers and twin == []
+        dec = (1, 16, tc.num_kv_heads, tc.q_per_kv, tc.head_dim)
+        assert flash == ([(shape, False)] * tc.num_encoder_layers
+                         + [(dec, True)] * tc.num_layers) and twin == []
         flash.clear()
         batch = dict(pre, labels=torch.from_numpy(b["tokens"][:, 1:]))
         value_and_grad(tm.train_loss, tp, batch)

@@ -547,6 +547,30 @@ def test_flash_f32_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap, qscal
     assert ok, errs
 
 
+# the prefills of the benchmark's short-batch cells: one block of lengths,
+# B = 16,384 // S, which the model sends to the kernel below FLASH_THRESHOLD
+SHORT_BATCH_S = (512, 640, 768, 896, 1152, 1280, 1536, 1920)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("KV,G", [(2, 16), (8, 4)], ids=["kv2_g16", "kv8_g4"])
+@pytest.mark.parametrize("S", SHORT_BATCH_S)
+def test_flash_kernel_at_short_batch_shapes_on_card(S, KV, G):
+    """bf16, causal, D 128 at glm4-9b's (KV 2 × G 16) and mistral-nemo-12b's
+    (KV 8 × G 4) heads."""
+    _need_cuda()
+    B, D = 16384 // S, 128
+    g = torch.Generator("cuda").manual_seed(S + G)
+    q = torch.randn((B, S, KV, G, D), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, S, KV, D), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, S, KV, D), generator=g, device="cuda").bfloat16()
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=True)
+    errs, ok = ref.flash_attention_check(got, q, k, v, causal=True)
+    assert fa.LAUNCHES == before + 1
+    assert ok, errs
+
+
 @pytest.mark.gpu
 def test_flash_f32_kernel_past_65535_heads_on_card():
     """B·H = 65,540 (past a grid's y extent, which the f32 kernel once

@@ -12,7 +12,9 @@ import torch
 from repro.models.config import get_config as jax_config
 from repro.models.model import build_model as jax_model
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
 from repro_torch.models import layers as L
+from repro_torch.models.accounting import count_scan_flops
 from repro_torch.models.bridge import from_jax_params
 from repro_torch.models.config import XLSTMConfig, get_config
 from repro_torch.models.model import build_model
@@ -146,6 +148,139 @@ def test_prefill_past_flash_threshold_matches_jax():
     assert len(calls) == tm.cfg.num_layers and fa.LAUNCHES == before
     jl, _, _ = _japply(jm, jp, toks, mode="prefill", max_len=S + 4)
     _close(tl, jl)
+
+
+def _wide(dtype, **kw):
+    """glm4-9b:smoke at its full-width head_dim of 128 (d_model 512 over 4
+    heads, 2 KV heads): a shape the flash kernel takes."""
+    cfg = get_config("glm4-9b:smoke").with_(d_model=512, num_heads=4, head_dim=128,
+                                            compute_dtype=dtype, **kw)
+    model = build_model(cfg)
+    return model, model.init(torch.Generator("cpu").manual_seed(0))
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _prefill(model, params, toks, *, kernel=True):
+    """(logits, cache leaves, flash calls with their outputs, scan FLOPs) of
+    a forward-only prefill; ``kernel=False`` runs the einsum path instead."""
+    calls, real, takes = [], L.ops.flash_attention, L.ops.flash_takes
+
+    def spy(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        calls.append((q, k, v, out, kw))
+        return out
+
+    res = []
+    L.ops.flash_attention = spy
+    if not kernel:
+        L.ops.flash_takes = lambda *a: False
+    try:
+        with torch.inference_mode():
+            flops = count_scan_flops(lambda: res.append(model.apply(
+                params, {"tokens": toks}, mode="prefill", max_len=toks.shape[1] + 4)))
+    finally:
+        L.ops.flash_attention, L.ops.flash_takes = real, takes
+    logits, cache, _ = res[0]
+    kv = [t for t in tree_leaves(cache) if t.is_floating_point()]
+    return logits, kv, calls, flops
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("S", [256, L.FLASH_THRESHOLD - 48])
+def test_short_prefill_runs_the_flash_kernel(S, dtype):
+    """A forward-only prefill at or below FLASH_THRESHOLD, at a head dim and
+    dtype the kernel takes, calls ``ops.flash_attention`` once a layer (on
+    the CPU its plain version: ``LAUNCHES`` counts only the card's
+    launches), each call within ``ref.flash_attention_check``'s tolerance,
+    and declares no scan FLOPs, as JAX's einsum path there. Logits and
+    cached k/v against the einsum path: in f32 within the f32 tolerance; in
+    bf16 the einsum path rounds the logits to bf16 (the two runs differ by
+    about 0.9 % at the logits), so both runs are held against the f32 run of
+    the same weights, the kernel's no further than the einsum's plus one
+    call's bf16 tolerance."""
+    model, params = _wide(dtype)
+    toks = torch.from_numpy(_tokens(2, S, seed=5))
+    before = fa.LAUNCHES
+    logits, kv, calls, flops = _prefill(model, params, toks)
+    cfg = model.cfg
+    assert fa.LAUNCHES == before and flops == 0.0
+    assert [(tuple(q.shape), kw) for q, _, _, _, kw in calls] == [
+        ((2, S, cfg.num_kv_heads, cfg.q_per_kv, 128), {"causal": True, "softcap": 0.0})
+    ] * cfg.num_layers
+    for q, k, v, out, kw in calls:
+        errs, ok = ref.flash_attention_check(out, q, k, v, **kw)
+        assert ok, errs
+    e_logits, e_kv, e_calls, e_flops = _prefill(model, params, toks, kernel=False)
+    assert e_calls == [] and e_flops == 0.0
+    if dtype == torch.float32:
+        tol = ref.FLASH_F32_TOL
+        for got, want in zip([logits] + kv, [e_logits] + e_kv):
+            torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        return
+    # the first layer's cache is written before any attention runs
+    assert all(torch.equal(a, b) for a, b in zip(kv[:2], e_kv[:2]))
+    f_model, f_params = _wide(torch.float32)
+    f_logits, f_kv, _, _ = _prefill(f_model, f_params, toks)
+    for got, other, want in zip([logits] + kv, [e_logits] + e_kv, [f_logits] + f_kv):
+        assert _rel(got, want) <= _rel(other, want) + ref.FLASH_BF16_REL_TOL
+
+
+@pytest.mark.parametrize("case", ["head_dim_16", "decode", "prefill_records",
+                                  "train_records", "cross_attention"])
+def test_attention_outside_the_kernel_rule_stays_on_einsum(case):
+    """Paths the kernel does not serve below FLASH_THRESHOLD make no flash
+    call: a head dim it does not take, decode (its ``kv_len`` mask over the
+    cache), a prefill or train-mode forward while autograd records, and
+    cross-attention (``kv_src``)."""
+    S = 256
+    if case == "head_dim_16":
+        model = build_model(get_config("glm4-9b:smoke").with_(head_dim=16))
+        params = model.init(torch.Generator("cpu").manual_seed(0))
+    else:
+        model, params = _wide(torch.bfloat16)
+    toks = torch.from_numpy(_tokens(2, S, seed=6))
+    cache = None
+    if case == "decode":
+        with torch.inference_mode():
+            _, cache, _ = model.apply(params, {"tokens": toks}, mode="prefill", max_len=S + 4)
+    calls, real = [], L.ops.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(tuple(a[0].shape))
+        return real(*a, **kw)
+
+    before = fa.LAUNCHES
+    L.ops.flash_attention = spy
+    try:
+        if case == "cross_attention":
+            g = torch.Generator().manual_seed(7)
+            x = torch.randn((2, S, model.cfg.d_model), generator=g).bfloat16()
+            src = torch.randn((2, 40, model.cfg.d_model), generator=g).bfloat16()
+            with torch.inference_mode():
+                out, _, _ = L.apply_attention(
+                    params["stack"]["unroll"][0]["attn"], model.cfg, x,
+                    positions=torch.arange(S), causal=False, kv_src=src, mode="prefill")
+        elif case.endswith("_records"):
+            grads = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            mode = case.split("_")[0]
+            out, _, _ = model.apply(grads, {"tokens": toks}, mode=mode,
+                                    **({"max_len": S + 4} if mode == "prefill" else {}))
+            out.float().sum().backward()
+        elif case == "decode":
+            with torch.inference_mode():
+                out, _, _ = model.apply(params, {"tokens": toks[:, :1]}, mode="decode",
+                                        cache=cache)
+        else:
+            with torch.inference_mode():
+                out, _, _ = model.apply(params, {"tokens": toks}, mode="prefill",
+                                        max_len=S + 4)
+    finally:
+        L.ops.flash_attention = real
+    assert calls == [] and fa.LAUNCHES == before
+    assert bool(torch.isfinite(out.float()).all())
 
 
 @pytest.mark.parametrize("scan_layers", [False, True])

@@ -37,8 +37,11 @@ OUTSIDE_LEAVES = {
 @pytest.fixture(scope="module")
 def small():
     """A dense GQA model of two layers in the stacked layout the benchmark's
-    configurations use (4 heads over 2 KV heads, partial rotary)."""
-    cfg = get_config("glm4-9b:smoke").with_(num_layers=LAYERS, scan_layers=True)
+    configurations use (4 heads over 2 KV heads, partial rotary), at a head
+    dim the flash kernel does not take (16), so that a prefill up to
+    FLASH_THRESHOLD runs the einsum path."""
+    cfg = get_config("glm4-9b:smoke").with_(num_layers=LAYERS, scan_layers=True,
+                                            head_dim=16)
     model = build_model(cfg)
     return model, model.init(torch.Generator().manual_seed(7))
 
