@@ -18,7 +18,9 @@ exits non-zero without the final line:
                group 3 at 64; group 6 at 128 with softcap 30; head_dim 96
                in f32), at the recurrent_encdec path's (seamless's
                encoder, non-causal over 3,072 frames, and its decoder, both
-               16 heads of 64), non-causal, softcapped, ragged and in f32 (the
+               16 heads of 64), at granite-4.0-h-small's NoPE layers (G 4,
+               D 128, S 2,304 and 7,680, logits times 1/128 in place of
+               1/√128), non-causal, softcapped, ragged and in f32 (the
                f32 kernel also at the small phase's shape, at the prefill
                shape, and with softcap and q scaled by 8, checked only; its
                bound counts f32-accurate products at 495 / 3 TFLOP/s), each
@@ -434,7 +436,7 @@ def phase_kernels():
                     True, 0.0)
                    for KV, G in ((2, 16), (8, 4))
                    for S in (512, 640, 768, 896, 1152, 1280, 1536, 1920)]
-    cases = [  # name, B, S, KV, G, D, dtype, causal, softcap[, q scale]
+    cases = [  # name, B, S, KV, G, D, dtype, causal, softcap[, q scale[, logits scale]]
         ("prefill_bf16", BATCH, PROMPT, 8, 2, 128, torch.bfloat16, True, 0.0),
         ("small_f32", 2, 256, 2, 2, 64, torch.float32, True, 0.0),
         ("softcap_f32", 1, 256, 2, 4, 128, torch.float32, True, 30.0),
@@ -478,30 +480,40 @@ def phase_kernels():
         ("small_path_f32", 2, SMALL_S, 2, 2, 64, torch.float32, True, 0.0),
         ("prefill_f32", BATCH, PROMPT, 8, 2, 128, torch.float32, True, 0.0),
         ("softcap_f32_q8", 1, 700, 2, 6, 128, torch.float32, True, 30.0, 8.0),
+        # the benchmark's granite-4.0-h-small.long_prompt cell: its 4 NoPE
+        # layers' prefill (bench/traffic/long_prompt.json: one prompt of
+        # 2,304-7,680 tokens), 32 heads over 8 KV, logits times
+        # attention_multiplier 1/128 where the default is 1/sqrt(128)
+        ("granite_h_s2304_scale128_bf16", 1, 2304, 8, 4, 128, torch.bfloat16, True, 0.0,
+         1.0, 1 / 128),
+        ("granite_h_s7680_scale128_bf16", 1, 7680, 8, 4, 128, torch.bfloat16, True, 0.0,
+         1.0, 1 / 128),
     ] + short_batch
     check_only = {"d96_ragged_noncausal_g2_bf16", "d96_kv1_g4_bf16", "d64_s193_g3_bf16",
                   "grok_g6_softcap_q8_bf16", "softcap_f32_q8"}
 
-    def flash_case(name, B, S, KV, G, D, dt, causal, cap, qscale=1.0):
+    def flash_case(name, B, S, KV, G, D, dt, causal, cap, qscale=1.0, scale=None):
         q, k, v = _flash_inputs(B, S, KV, G, D, dt, seed=len(results), qscale=qscale)
-        out = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
+        out = fa.flash_attention(q, k, v, causal=causal, softcap=cap, scale=scale)
         # against the plain version in f32 on the same values
-        errs, ok = ref.flash_attention_check(out, q, k, v, causal=causal, softcap=cap)
+        errs, ok = ref.flash_attention_check(out, q, k, v, causal=causal, softcap=cap,
+                                             scale=scale)
         tol = ({"atol": ref.FLASH_F32_TOL, "rtol": ref.FLASH_F32_TOL}
                if dt == torch.float32 else
                {"rel": ref.FLASH_BF16_REL_TOL, "row_rel": ref.FLASH_BF16_ROW_REL_TOL})
         rec = {"shape": [B, S, KV, G, D], "dtype": str(dt), "causal": causal,
-               "softcap": cap, "qscale": qscale, **errs, "tol": tol}
+               "softcap": cap, "qscale": qscale, "scale": scale, **errs, "tol": tol}
         emit("flash_check", case=name, **rec)
         check(ok, f"flash {name}: errors {errs} beyond {tol}")
         if name in check_only:
             results[name] = rec
             return
         rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                       softcap=cap), 10)
+                                                       softcap=cap, scale=scale), 10)
         rec["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(
-            q, k, v, causal=causal, softcap=cap), 3, warmup=1)
+            q, k, v, causal=causal, softcap=cap, scale=scale), 3, warmup=1)
         if cap:  # SDPA has no softcap; flex_attention computes the same function
+            check(scale is None, f"flash {name}: the softcap yardstick takes 1/sqrt(D)")
             rec["library"] = "flex_attention"
             rec["library_ms"], rec["library_errors"] = flex_softcap_library(
                 q, k, v, causal, cap)
@@ -510,7 +522,7 @@ def phase_kernels():
             kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
             rec["library"] = "scaled_dot_product_attention"
             rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+                qt, kt, vt, is_causal=causal, enable_gqa=True, scale=scale), 10)
             del qt, kt, vt
         rec["ms_over_library"] = rec["ms"] / rec["library_ms"]
         flops, nbytes = _flash_work(q, k, causal)
@@ -542,6 +554,10 @@ def phase_kernels():
         "shape", "rel_err", "row_rel_err", "tol", "ms", "plain_ms", "library_ms",
         "ms_over_library", "bound_ms", "bound_by", "share_of_bound")}
         for name, *_ in short_batch}
+    fa_rec["scale_shapes"] = {name: {k: results[name].get(k) for k in (
+        "shape", "scale", "rel_err", "row_rel_err", "tol", "ms", "plain_ms", "library_ms",
+        "ms_over_library", "bound_ms", "bound_by", "share_of_bound")}
+        for name in ("granite_h_s2304_scale128_bf16", "granite_h_s7680_scale128_bf16")}
 
     merged = {}
     g = torch.Generator("cuda").manual_seed(7)
@@ -2918,7 +2934,8 @@ def main() -> int:
          "bound_by": fa_rec["bound_by"], "library_ms": fa_rec["library_ms"],
          "ms_over_library": fa_rec["ms_over_library"],
          "share_of_bound": fa_rec["share_of_bound"], "arch_shapes": fa_rec["arch_shapes"],
-         "f32_shapes": fa_rec["f32_shapes"], "short_batch_shapes": fa_rec["short_batch_shapes"]},
+         "f32_shapes": fa_rec["f32_shapes"], "short_batch_shapes": fa_rec["short_batch_shapes"],
+         "scale_shapes": fa_rec["scale_shapes"]},
         {"name": "merge", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/merge.cu",
          "replaces": "src/repro/kernels/kvmerge.py:24",

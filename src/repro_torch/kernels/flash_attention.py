@@ -96,18 +96,21 @@ def _strides(name: str, t: torch.Tensor):
     return strides
 
 
-def flash_attention(q, k, v, *, causal=True, softcap=0.0):
+def flash_attention(q, k, v, *, causal=True, softcap=0.0, scale=None):
     """GQA flash attention in the model layout: q (B,Sq,KV,G,D), k/v
     (B,Sk,KV,D) → (B,Sq,KV,G,D) in q's dtype. Causal masking assumes q and
-    k both start at position 0; Sq and Sk may be any lengths. DTensors
-    take the op's sharding strategy (``register_sharding_strategy``, which
-    ``sharding.use_rules`` calls on a DeviceMesh)."""
+    k both start at position 0; Sq and Sk may be any lengths. The logits
+    are q·k times ``scale`` (None: 1/√D). DTensors take the op's sharding
+    strategy (``register_sharding_strategy``, which ``sharding.use_rules``
+    calls on a DeviceMesh)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise ValueError("flash_attention is a forward-only kernel: q, k or v "
                          "requires grad; train through "
                          "models.layers._flash_attention_qchunked")
-    return flash_attention_op(q, k, v, bool(causal), float(softcap))
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return flash_attention_op(q, k, v, bool(causal), float(softcap), float(scale))
 
 
 def _check(q, k, v):
@@ -122,14 +125,14 @@ def _check(q, k, v):
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                       softcap: float) -> torch.Tensor:
+                       softcap: float, scale: float) -> torch.Tensor:
     """The registered op: the plain version on CPU tensors, the kernel on
     CUDA tensors (or a ValueError); ``register_fake`` gives its output's
     shape to ``FakeTensorMode`` and the meta device."""
     qs, ks, vs = _check(q, k, v)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       softcap=softcap).contiguous()
+        return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap,
+                                       scale=scale).contiguous()
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     B, Sq, KV, G, D = q.shape
@@ -141,7 +144,6 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must lie on one device")
     Sk = k.shape[1]
-    scale = 1.0 / math.sqrt(D)
     out = torch.empty((B, Sq, KV, G, D), dtype=q.dtype, device=q.device)
     os_ = _strides("out", out)
     with torch.cuda.device(q.device):
@@ -158,7 +160,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
 
 
 @flash_attention_op.register_fake
-def _(q, k, v, causal, softcap):
+def _(q, k, v, causal, softcap, scale):
     _check(q, k, v)
     return q.new_empty(q.shape)
 
@@ -184,8 +186,8 @@ def register_sharding_strategy() -> None:
     from torch.distributed.tensor.experimental import register_sharding
 
     @register_sharding(torch.ops.repro_torch.flash_attention.default)
-    def _strategy(q, k, v, causal, softcap):
+    def _strategy(q, k, v, causal, softcap, scale):
         r = Replicate()
-        return [([r], [r, r, r, None, None])] + [
-            ([Shard(d)], [Shard(d), Shard(d), Shard(d), None, None]) for d in (0, 2)
-        ] + [([Shard(3)], [Shard(3), r, r, None, None])]
+        return [([r], [r, r, r, None, None, None])] + [
+            ([Shard(d)], [Shard(d), Shard(d), Shard(d), None, None, None]) for d in (0, 2)
+        ] + [([Shard(3)], [Shard(3), r, r, None, None, None])]

@@ -14,14 +14,15 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0):
+def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, scale=None):
     """q (B,Sq,KV,G,D), k/v (B,Sk,KV,D) → (B,Sq,KV,G,D) in q's dtype.
 
-    Scores materialised in f32, scaled by 1/√D, tanh-softcapped, causally
-    masked (q and k both start at position 0), softmaxed over the keys."""
+    Scores materialised in f32, scaled by ``scale`` (None: 1/√D),
+    tanh-softcapped, causally masked (q and k both start at position 0),
+    softmaxed over the keys."""
     B, Sq, KV, G, D = q.shape
     Sk = k.shape[1]
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
@@ -43,7 +44,7 @@ FLASH_BF16_REL_TOL = 5e-3
 FLASH_BF16_ROW_REL_TOL = 1e-2
 
 
-def flash_attention_check(out, q, k, v, *, causal=True, softcap=0.0):
+def flash_attention_check(out, q, k, v, *, causal=True, softcap=0.0, scale=None):
     """Errors of ``out``, a kernel's result on (q, k, v), against
     ``flash_attention_ref`` on the same values in f32: ``max_abs_err``,
     ``rel_err`` = ‖out − ref‖_F / ‖ref‖_F, and ``row_rel_err``, the largest
@@ -51,7 +52,7 @@ def flash_attention_check(out, q, k, v, *, causal=True, softcap=0.0):
     ``tol_ratio``, the largest |out − ref| / (atol + rtol·|ref|), which
     ``allclose`` holds to 1. Returns (errors, within tolerance)."""
     want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
-                               softcap=softcap)
+                               softcap=softcap, scale=scale)
     d = out.float() - want
     rows = d.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
     errs = {"max_abs_err": d.abs().max().item(),

@@ -2,6 +2,7 @@
 ``src/repro/models/config.py`` with torch dtypes)."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any, Optional, Tuple
 
@@ -16,6 +17,11 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     router_z_weight: float = 1e-3
+    # the port's own, past the JAX package's fields: dropless dispatch (no
+    # capacity: every (token, k) pair is computed), and a shared SwiGLU
+    # expert of this width beside the routed ones (0: none)
+    dropless: bool = False
+    shared_d_ff: int = 0
 
 
 @dataclass(frozen=True)
@@ -28,6 +34,7 @@ class MambaConfig:
     expand: int = 2
     head_dim: int = 64
     chunk: int = 256
+    conv_bias: bool = False  # a bias after the depthwise conv (the port's own)
 
 
 @dataclass(frozen=True)
@@ -72,6 +79,14 @@ class ModelConfig:
     frontend: str = "none"
     frontend_seq: int = 0
     max_seq_len: int = 131072
+    # muP scalars (granite 4.0): the embedding times ``embedding_multiplier``,
+    # every sublayer's output times ``residual_multiplier`` before its
+    # residual add, attention logits times ``attention_multiplier`` (0:
+    # 1/sqrt(head_dim)), the logits divided by ``logits_scaling``
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
     # numerics
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
@@ -81,8 +96,14 @@ class ModelConfig:
     sub_quadratic: bool = False
 
     def __post_init__(self):
+        """Also takes ``moe`` and ``mamba`` as dicts of their fields and
+        ``block_pattern`` as a list, as a JSON file states them."""
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        for name, kind in (("moe", MoEConfig), ("mamba", MambaConfig)):
+            if isinstance(getattr(self, name), dict):
+                object.__setattr__(self, name, kind(**getattr(self, name)))
+        object.__setattr__(self, "block_pattern", tuple(self.block_pattern))
 
     # ---- derived ----
     def block_kind(self, layer: int) -> str:
@@ -96,6 +117,11 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    @property
+    def attn_scale(self) -> float:
+        """What attention multiplies its q·k logits by."""
+        return self.attention_multiplier or 1.0 / math.sqrt(self.head_dim)
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)

@@ -180,12 +180,14 @@ def _softcap(logits, cap):
     return torch.tanh(logits / cap) * cap if cap else logits
 
 
-def _einsum_attention(qg, k, v, *, causal, softcap, kv_len=None):
-    """qg (B,Sq,KV,G,D), k/v (B,Sk,KV,D). Returns (B,Sq,KV,G,D)."""
+def _einsum_attention(qg, k, v, *, causal, softcap, kv_len=None, scale=None):
+    """qg (B,Sq,KV,G,D), k/v (B,Sk,KV,D). Returns (B,Sq,KV,G,D). The
+    logits are q·k times ``scale`` (None: 1/√D)."""
     B, Sq, KV, G, D = qg.shape
     Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
-    logits = _softcap(logits * (1.0 / math.sqrt(D)), softcap)
+    logits = _softcap(logits * scale, softcap)
     mask = None
     if causal:
         mask = (torch.arange(Sq, device=qg.device)[:, None]
@@ -210,11 +212,11 @@ def _pick_block(n: int, want: int) -> int:
     return n
 
 
-def _kv_block_step(m, l, acc, qg, kc, vc, qpos, kpos, causal, softcap):
+def _kv_block_step(m, l, acc, qg, kc, vc, qpos, kpos, causal, softcap, scale):
     """One online-softmax step over a KV block: (m, l, acc) (B,KV,G,Sq[,D])
     in f32 → the same after the keys ``kc`` at positions ``kpos``."""
     lg = torch.einsum("bqkgd,bskd->bkgqs", qg, kc).float()
-    lg = _softcap(lg * (1.0 / math.sqrt(qg.shape[-1])), softcap)
+    lg = _softcap(lg * scale, softcap)
     if causal:
         lg = lg.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
     mnew = torch.maximum(m, lg.amax(-1))
@@ -227,12 +229,14 @@ def _kv_block_step(m, l, acc, qg, kc, vc, qpos, kpos, causal, softcap):
 
 
 def _flash_attention_chunked(qg, k, v, *, causal, softcap, block_kv=FLASH_BLOCK_KV,
-                             q_offset=0):
+                             q_offset=0, scale=None):
     """Online softmax over KV blocks (port of ``_flash_attention_jnp``); each
     block step rematerialised, so the backward keeps no block's f32 logits.
-    qg (B,Sq,KV,G,D) at positions ``q_offset…``, k/v (B,Sk,KV,D)."""
+    qg (B,Sq,KV,G,D) at positions ``q_offset…``, k/v (B,Sk,KV,D); logits
+    times ``scale`` (None: 1/√D)."""
     B, Sq, KV, G, D = qg.shape
     Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     block_kv = _pick_block(Sk, block_kv)
     qpos = q_offset + torch.arange(Sq, device=qg.device)
     m = torch.full((B, KV, G, Sq), -math.inf, dtype=torch.float32, device=qg.device)
@@ -241,24 +245,25 @@ def _flash_attention_chunked(qg, k, v, *, causal, softcap, block_kv=FLASH_BLOCK_
     for s0 in range(0, Sk, block_kv):
         kpos = s0 + torch.arange(block_kv, device=qg.device)
         m, l, acc = remat(_kv_block_step, m, l, acc, qg, k[:, s0:s0 + block_kv],
-                          v[:, s0:s0 + block_kv], qpos, kpos, causal, softcap)
+                          v[:, s0:s0 + block_kv], qpos, kpos, causal, softcap, scale)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(qg.dtype)  # (B,Sq,KV,G,D)
 
 
 def _flash_attention_qchunked(qg, k, v, *, causal, softcap, block_q=FLASH_BLOCK_Q,
-                              block_kv=FLASH_BLOCK_KV):
+                              block_kv=FLASH_BLOCK_KV, scale=None):
     """Double-chunked flash twin: q blocks of ``block_q`` rows bound the
     logits working set to (block_q, block_kv) regardless of Sq. Plain,
     differentiable torch: the attention of the train path."""
     Sq = qg.shape[1]
     if Sq <= block_q:
         return _flash_attention_chunked(qg, k, v, causal=causal, softcap=softcap,
-                                        block_kv=block_kv)
+                                        block_kv=block_kv, scale=scale)
     block_q = _pick_block(Sq, block_q)
     return torch.cat([
         _flash_attention_chunked(qg[:, q0:q0 + block_q], k, v, causal=causal,
-                                 softcap=softcap, block_kv=block_kv, q_offset=q0)
+                                 softcap=softcap, block_kv=block_kv, q_offset=q0,
+                                 scale=scale)
         for q0 in range(0, Sq, block_q)], dim=1)
 
 
@@ -361,7 +366,8 @@ def apply_attention(
             new_cache = {"k": kc, "v": vc, "len": idx + 1}
         with span("attention.core"):
             out = _einsum_attention(
-                q, kc, vc, causal=False, softcap=cfg.attn_logit_softcap, kv_len=idx + 1
+                q, kc, vc, causal=False, softcap=cfg.attn_logit_softcap, kv_len=idx + 1,
+                scale=cfg.attn_scale,
             )
     else:
         if mode == "prefill":
@@ -387,16 +393,17 @@ def apply_attention(
                 # the twin where autograd records, and for a decoder's
                 # train-mode forward (causal) even where it does not
                 out = _per_shard(_flash_attention_qchunked, q, k, v, causal=causal,
-                                 softcap=cfg.attn_logit_softcap)
+                                 softcap=cfg.attn_logit_softcap, scale=cfg.attn_scale)
             elif long or short_kernel:
                 # past the threshold also non-causal self-attention, the
                 # encoder's, which JAX runs in train mode inside every
                 # prefill: there the forward-only kernel serves it
                 out = ops.flash_attention(q, k, v, causal=causal,
-                                          softcap=cfg.attn_logit_softcap)
+                                          softcap=cfg.attn_logit_softcap,
+                                          scale=cfg.attn_scale)
             else:
                 out = _per_shard(_einsum_attention, q, k, v, causal=causal,
-                                 softcap=cfg.attn_logit_softcap)
+                                 softcap=cfg.attn_logit_softcap, scale=cfg.attn_scale)
             if long:
                 scan_flops = attention_scan_flops(B, S, S, cfg.num_heads, cfg.head_dim, causal)
     with span("attention.out"):

@@ -95,7 +95,10 @@ class Model:
         with span("model.embed"):
             # gather, then cast: the same values as casting the table first
             x = embed_lookup(tokens, params["embed"])
-            return lac(x, "batch", "act_seq", "embed_shard").to(self.cfg.compute_dtype)
+            x = lac(x, "batch", "act_seq", "embed_shard").to(self.cfg.compute_dtype)
+            if self.cfg.embedding_multiplier != 1.0:
+                x = x * self.cfg.embedding_multiplier
+            return x
 
     def _head(self, params, x):
         cfg = self.cfg
@@ -105,6 +108,8 @@ class Model:
                 logits = x @ params["embed"].to(cfg.compute_dtype).T
             else:
                 logits = x @ params["lm_head"].to(cfg.compute_dtype)
+            if cfg.logits_scaling != 1.0:
+                logits = logits / cfg.logits_scaling
             # the product's gradient returns as the product made it, whole
             # along the sequence, not at the logits' placements (``lac_grad``)
             logits = lac_grad(logits, "batch", "seq", "logit_vocab")

@@ -10,6 +10,17 @@ probabilities renormalised to sum to 1. The top k breaks ties to the lower
 expert index, as ``jax.lax.top_k`` does, so that ties cannot change the
 dispatch. The expert products are plain matmuls: the JAX module has no
 Pallas kernel.
+
+The port's own options (``MoEConfig``), which the JAX package lacks:
+``dropless`` computes every (token, k) pair: the pairs of the whole batch
+sorted by expert (stable), their rows gathered, one grouped product
+(``torch._grouped_mm``) over the experts' contiguous rows, then
+un-permuted by a gather and summed over k, with no scatter-add, so the
+sums are deterministic. ``shared_d_ff`` adds a shared SwiGLU expert that
+every token passes through. ``dispatch_counters`` reads, from the
+router's choices, the pairs a config's dispatch drops and the busiest
+expert's load. Spans: ``moe.route``, ``moe.dispatch``, ``moe.experts``,
+``moe.shared`` and ``moe.combine``.
 """
 from __future__ import annotations
 
@@ -18,9 +29,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import gelu
+from repro_torch.models.layers import apply_mlp, gelu, mlp_spec
 from repro_torch.models.schema import ParamSpec
 from repro_torch.sharding import lac, lac_grad, per_shard
+from repro_torch.spans import span
 
 
 def moe_spec(cfg) -> dict:
@@ -33,6 +45,8 @@ def moe_spec(cfg) -> dict:
     }
     if cfg.mlp_kind == "swiglu":
         spec["wg"] = ParamSpec((e, d, f), ("experts", "embed", "expert_mlp"))
+    if m.shared_d_ff:
+        spec["shared"] = mlp_spec(cfg, m.shared_d_ff)
     return spec
 
 
@@ -74,14 +88,11 @@ def _expert_in(xe, wi, wg=None):
     return h.contiguous()
 
 
-def apply_moe(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-    """x (B,S,D) → (y (B,S,D), {"moe_aux", "moe_z"})."""
-    B, S, D = x.shape
+def _route(p: dict, cfg, x: torch.Tensor):
+    """Router product, softmax, top k, renormalised gates and the aux
+    losses: (gate (B,S,K) f32, eidx (B,S,K), {"moe_aux", "moe_z"})."""
     m = cfg.moe
     E, K = m.num_experts, m.experts_per_token
-    C = _capacity(S, cfg)
-    dev = x.device
-
     # the router product's gradient whole along the sequence, as its input
     # is: DTensor would split it there, which the product's backward must
     # flatten with the batch into a strided shard
@@ -95,55 +106,129 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     ce = F.one_hot(eidx[..., 0], E).float().mean(1)  # top-1 assignment fraction
     aux = (me * ce).sum(-1).mean() * E * m.router_aux_weight
     zloss = (torch.logsumexp(logits, -1) ** 2).mean() * m.router_z_weight
+    return gate, eidx, {"moe_aux": aux, "moe_z": zloss}
 
-    # ---- slot assignment: position of each (token,k) within its expert queue
-    T = S * K
-    ef = eidx.reshape(B, T)
-    pos = torch.cumsum(F.one_hot(ef, E), dim=1) - 1  # (B,T,E), integer
-    pos = pos.gather(-1, ef[..., None])[..., 0]  # (B,T)
-    keep = pos < C
-    slot = torch.where(keep, ef * C + pos, E * C)  # overflow -> the zero row
 
-    # ---- scatter token ids to the E·C slots. Each dropped pair writes a
-    # scratch slot of its own past E·C (JAX writes them all to one scratch
-    # slot), so no two writes meet; the scratch slots are cut off.
-    t = torch.arange(T, device=dev)
-    dest = torch.where(keep, slot, E * C + t)
-    slot2tok = torch.full((B, E * C + T), S, dtype=torch.long, device=dev)
-    slot2tok = slot2tok.scatter(1, dest, (t // K).expand(B, T))[:, : E * C]
-    # the gathers are each batch row's own: on DTensors they run on each
-    # device's rows (``per_shard``), where DTensor would flatten the batch
-    # with a split dim, or index a split row dim with global row numbers
-    xe = per_shard(lambda a, i: _rows_of(a, i).reshape(i.shape[0], E, C, D), (x, slot2tok),
-                   (_BSD, ("batch", None)), (("batch", None, None, None),))
-    # its gradient comes back with the experts whole, as the gather made
-    # them (``lac_grad``)
-    xe = lac(lac_grad(xe, "batch", None, None, None), *_BECD)
+def dispatch_counters(cfg, eidx: torch.Tensor) -> dict:
+    """From the router's choices eidx (B,S,K): ``moe_dropped``, the pairs
+    that the config's dispatch drops (past an expert's capacity in a
+    sequence; none where it is ``dropless``), and ``moe_load_max``, the
+    busiest expert's pairs over the mean, both f32."""
+    m = cfg.moe
+    B, S, K = eidx.shape
+    counts = F.one_hot(eidx.reshape(B, S * K), m.num_experts).sum(1)  # (B,E)
+    over = 0 if m.dropless else (counts - _capacity(S, cfg)).clamp_min(0).sum()
+    total = counts.sum(0)
+    return {"moe_dropped": torch.as_tensor(over, dtype=torch.float32),
+            "moe_load_max": total.max().float() * (m.num_experts / (B * S * K))}
 
-    # ---- expert FFN. While autograd records, the input products and the
-    # activation, which sum over no split dim, run on each device's shards
-    # (``per_shard``), the weights whole along d as FSDP gathers them: the
-    # backward of DTensor's einsum views permuted shards as if they were
-    # contiguous on torch 2.11 (grok-1 train_4k on 2x16x16). A serving step
-    # keeps DTensor's plan, which sums each shard's part of a split d and
-    # reduces the hidden: at decode's few tokens, less than the weights.
-    ws = [p[k].to(x.dtype) for k in ("wi", "wg") if k in p]
-    if xe.requires_grad:
-        h = per_shard(_expert_in, (xe, *ws),
-                      (_BECD,) + (("experts", None, "expert_mlp"),) * len(ws),
-                      (("batch", "experts", None, "expert_mlp"),))
-    else:
-        h = _expert_in(xe, *ws)
-    ye = torch.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))
-    ye = lac(ye, "batch", "experts", None, None)
 
-    # ---- combine: gather each (token,k) result from its slot, weight, sum
-    ytk = per_shard(lambda a, i: _rows_of(a.reshape(a.shape[0], E * C, D), i),
-                    (ye, slot), (("batch", None, None, None), ("batch", None)), (_BSD,))
-    w = (gate.reshape(B, T) * keep).to(x.dtype)
-    y = (ytk * w[..., None]).reshape(B, S, K, D).sum(2)
-    y = lac(y, "batch", "seq", None)
-    return y, {"moe_aux": aux, "moe_z": zloss}
+def apply_moe(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """x (B,S,D) → (y (B,S,D), {"moe_aux", "moe_z"})."""
+    with span("moe.route"):
+        gate, eidx, aux = _route(p, cfg, x)
+    shared = None
+    if "shared" in p:
+        with span("moe.shared"):
+            shared = apply_mlp(p["shared"], cfg, x)
+    dispatch = _dropless if cfg.moe.dropless else _capacity_dispatch
+    return dispatch(p, cfg, x, gate, eidx, shared), aux
+
+
+def _capacity_dispatch(p: dict, cfg, x, gate, eidx, shared):
+    """The JAX package's dispatch: y (B,S,D), plus ``shared`` where
+    given."""
+    B, S, D = x.shape
+    m = cfg.moe
+    E, K = m.num_experts, m.experts_per_token
+    C = _capacity(S, cfg)
+    dev = x.device
+
+    with span("moe.dispatch"):
+        # ---- slot assignment: position of each (token,k) within its expert queue
+        T = S * K
+        ef = eidx.reshape(B, T)
+        pos = torch.cumsum(F.one_hot(ef, E), dim=1) - 1  # (B,T,E), integer
+        pos = pos.gather(-1, ef[..., None])[..., 0]  # (B,T)
+        keep = pos < C
+        slot = torch.where(keep, ef * C + pos, E * C)  # overflow -> the zero row
+
+        # ---- scatter token ids to the E·C slots. Each dropped pair writes a
+        # scratch slot of its own past E·C (JAX writes them all to one scratch
+        # slot), so no two writes meet; the scratch slots are cut off.
+        t = torch.arange(T, device=dev)
+        dest = torch.where(keep, slot, E * C + t)
+        slot2tok = torch.full((B, E * C + T), S, dtype=torch.long, device=dev)
+        slot2tok = slot2tok.scatter(1, dest, (t // K).expand(B, T))[:, : E * C]
+        # the gathers are each batch row's own: on DTensors they run on each
+        # device's rows (``per_shard``), where DTensor would flatten the batch
+        # with a split dim, or index a split row dim with global row numbers
+        xe = per_shard(lambda a, i: _rows_of(a, i).reshape(i.shape[0], E, C, D),
+                       (x, slot2tok), (_BSD, ("batch", None)), (("batch", None, None, None),))
+        # its gradient comes back with the experts whole, as the gather made
+        # them (``lac_grad``)
+        xe = lac(lac_grad(xe, "batch", None, None, None), *_BECD)
+
+    with span("moe.experts"):
+        # ---- expert FFN. While autograd records, the input products and the
+        # activation, which sum over no split dim, run on each device's shards
+        # (``per_shard``), the weights whole along d as FSDP gathers them: the
+        # backward of DTensor's einsum views permuted shards as if they were
+        # contiguous on torch 2.11 (grok-1 train_4k on 2x16x16). A serving step
+        # keeps DTensor's plan, which sums each shard's part of a split d and
+        # reduces the hidden: at decode's few tokens, less than the weights.
+        ws = [p[k].to(x.dtype) for k in ("wi", "wg") if k in p]
+        if xe.requires_grad:
+            h = per_shard(_expert_in, (xe, *ws),
+                          (_BECD,) + (("experts", None, "expert_mlp"),) * len(ws),
+                          (("batch", "experts", None, "expert_mlp"),))
+        else:
+            h = _expert_in(xe, *ws)
+        ye = torch.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))
+        ye = lac(ye, "batch", "experts", None, None)
+
+    with span("moe.combine"):
+        # ---- combine: gather each (token,k) result from its slot, weight, sum
+        ytk = per_shard(lambda a, i: _rows_of(a.reshape(a.shape[0], E * C, D), i),
+                        (ye, slot), (("batch", None, None, None), ("batch", None)), (_BSD,))
+        w = (gate.reshape(B, T) * keep).to(x.dtype)
+        y = (ytk * w[..., None]).reshape(B, S, K, D).sum(2)
+        y = lac(y, "batch", "seq", None)
+        if shared is not None:
+            y = y + shared
+    return y
+
+
+def _dropless(p: dict, cfg, x, gate, eidx, shared):
+    """Every (token, k) pair of the batch through its expert: y (B,S,D),
+    plus ``shared`` where given."""
+    B, S, D = x.shape
+    m = cfg.moe
+    E, K = m.num_experts, m.experts_per_token
+    with span("moe.dispatch"):
+        flat = eidx.reshape(-1)  # (B·S·K,) pairs in (token, k) order
+        by_expert, order = torch.sort(flat, stable=True)
+        # each expert's last row + 1, found in the sorted ids: no count that
+        # the host must wait for (``bincount`` on a CUDA device syncs)
+        offs = torch.searchsorted(by_expert, torch.arange(1, E + 1, device=flat.device),
+                                  out_int32=True)
+        xs = x.reshape(B * S, D).index_select(0, order // K)  # (T, D) by expert
+    with span("moe.experts"):
+        # each expert's rows times its own (E, in, out) weight, one grouped
+        # product over the sorted rows
+        def grouped(a, w):
+            return torch._grouped_mm(a, w.to(x.dtype), offs=offs)
+
+        h = grouped(xs, p["wi"])
+        h = F.silu(grouped(xs, p["wg"])) * h if "wg" in p else gelu(h)
+        ys = grouped(h, p["wo"])  # (T, D)
+    with span("moe.combine"):
+        inv = torch.argsort(order)  # each pair's row among the sorted
+        ytk = ys.index_select(0, inv).reshape(B, S, K, D)
+        y = (ytk * gate.to(x.dtype)[..., None]).sum(2)
+        if shared is not None:
+            y = y + shared
+    return y
 
 
 def moe_active_flops(B: int, S: int, cfg) -> float:

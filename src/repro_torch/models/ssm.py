@@ -9,6 +9,11 @@ cum_s) (entries ≤ 1) turns the recurrence into two matrix products; across
 chunks the state is carried by a scan over the chunks, a Python loop here
 where JAX runs ``jax.lax.associative_scan``. Decode runs the recurrence
 one token at a time. The JAX module has no Pallas kernel.
+
+``MambaConfig.conv_bias`` (the port's own) adds a bias ``conv_b`` after
+the depthwise conv. Spans: ``mamba.proj`` (the five in-projections),
+``mamba.conv``, ``mamba.ssd`` (the scan or the decode step and the D
+skip) and ``mamba.out`` (the gated norm and the out-projection).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.schema import ParamSpec
 from repro_torch.sharding import lac, lac_grad, per_shard
+from repro_torch.spans import span
 
 
 def mamba_dims(cfg):
@@ -32,7 +38,7 @@ def mamba_spec(cfg) -> dict:
     mc = cfg.mamba
     d = cfg.d_model
     di, H, N, P = mamba_dims(cfg)
-    return {
+    spec = {
         "wz": ParamSpec((d, di), ("embed", "inner")),
         "wx": ParamSpec((d, di), ("embed", "inner")),
         "wB": ParamSpec((d, N), ("embed", "state")),
@@ -45,6 +51,9 @@ def mamba_spec(cfg) -> dict:
         "gnorm": ParamSpec((di,), ("inner",), init="ones"),
         "wo": ParamSpec((di, d), ("inner", "embed")),
     }
+    if mc.conv_bias:
+        spec["conv_b"] = ParamSpec((di + 2 * N,), ("inner",), init="zeros")
+    return spec
 
 
 def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None):
@@ -160,45 +169,51 @@ def apply_mamba(p: dict, cfg, x: torch.Tensor, *, cache: Optional[dict] = None,
 
     # each product's gradient returns whole along the sequence, as the
     # input is (``lac_grad``): DTensor would otherwise split it there
-    z, xin, Bm, Cm, dt_raw = (lac_grad(dt_x @ p[w].to(dt_x.dtype), "batch", "seq", None)
-                              for w in ("wz", "wx", "wB", "wC", "wdt"))
+    with span("mamba.proj"):
+        z, xin, Bm, Cm, dt_raw = (lac_grad(dt_x @ p[w].to(dt_x.dtype), "batch", "seq", None)
+                                  for w in ("wz", "wx", "wB", "wC", "wdt"))
 
-    xBC = torch.cat([xin, Bm, Cm], -1)
-    conv_state = cache.get("conv") if cache else None
-    xBC, new_conv = _causal_conv(xBC, p["conv"].to(dt_x.dtype), conv_state)
-    xBC = F.silu(xBC)
-    xin, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
-    xin = lac(xin, "batch", "seq", "inner")
+    with span("mamba.conv"):
+        xBC = torch.cat([xin, Bm, Cm], -1)
+        conv_state = cache.get("conv") if cache else None
+        xBC, new_conv = _causal_conv(xBC, p["conv"].to(dt_x.dtype), conv_state)
+        if "conv_b" in p:
+            xBC = xBC + p["conv_b"].to(dt_x.dtype)
+        xBC = F.silu(xBC)
+        xin, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+        xin = lac(xin, "batch", "seq", "inner")
 
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B,S,H)
-    A = -torch.exp(p["A_log"].float())  # (H,) negative
-    a_log = dt * A[None, None, :]  # ≤ 0
+    with span("mamba.ssd"):
+        dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B,S,H)
+        A = -torch.exp(p["A_log"].float())  # (H,) negative
+        a_log = dt * A[None, None, :]  # ≤ 0
 
-    xh = xin.reshape(B, S, H, P)
-    xh = lac(xh, "batch", None, "inner_heads", None)
-    if mode == "decode":
-        if S != 1 or cache is None:
-            raise ValueError("decode takes one token per sequence and a cache")
-        h0 = cache["ssm"].float()  # (B,H,N,P)
-        a = torch.exp(a_log[:, 0])  # (B,H)
-        xb = (xh[:, 0] * dt[:, 0, :, None]).float()  # (B,H,P)
-        upd = torch.einsum("bn,bhp->bhnp", Bm[:, 0].float(), xb)
-        h = h0 * a[..., None, None] + upd
-        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)[:, None]  # (B,1,H,P)
-        new_cache = {"conv": new_conv, "ssm": h}
-    else:
-        # the scan is independent per batch row and head: on DTensors it
-        # runs on each device's shards, one dispatch for the whole scan
-        h0 = (cache["ssm"].float(),) if cache else ()
-        y, h_last = per_shard(
-            lambda *a: ssd_chunked(*a[:5], mc.chunk, *a[5:]), (xh, dt, a_log, Bm, Cm, *h0),
-            (_BSHP, _BSH, _BSH, _BSN, _BSN) + (_STATE,) * len(h0), (_BSHP, _STATE))
-        new_cache = {"conv": new_conv, "ssm": h_last} if mode == "prefill" else None
-    y = y + xh.float() * p["Dskip"].float()[None, None, :, None]
-    y = y.reshape(B, S, di).to(dt_x.dtype)
-    y = _gated_rmsnorm(y, z, p["gnorm"])
-    y = lac(y, "batch", "seq", "inner")
-    return y @ p["wo"].to(dt_x.dtype), new_cache
+        xh = xin.reshape(B, S, H, P)
+        xh = lac(xh, "batch", None, "inner_heads", None)
+        if mode == "decode":
+            if S != 1 or cache is None:
+                raise ValueError("decode takes one token per sequence and a cache")
+            h0 = cache["ssm"].float()  # (B,H,N,P)
+            a = torch.exp(a_log[:, 0])  # (B,H)
+            xb = (xh[:, 0] * dt[:, 0, :, None]).float()  # (B,H,P)
+            upd = torch.einsum("bn,bhp->bhnp", Bm[:, 0].float(), xb)
+            h = h0 * a[..., None, None] + upd
+            y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)[:, None]  # (B,1,H,P)
+            new_cache = {"conv": new_conv, "ssm": h}
+        else:
+            # the scan is independent per batch row and head: on DTensors it
+            # runs on each device's shards, one dispatch for the whole scan
+            h0 = (cache["ssm"].float(),) if cache else ()
+            y, h_last = per_shard(
+                lambda *a: ssd_chunked(*a[:5], mc.chunk, *a[5:]), (xh, dt, a_log, Bm, Cm, *h0),
+                (_BSHP, _BSH, _BSH, _BSN, _BSN) + (_STATE,) * len(h0), (_BSHP, _STATE))
+            new_cache = {"conv": new_conv, "ssm": h_last} if mode == "prefill" else None
+        y = y + xh.float() * p["Dskip"].float()[None, None, :, None]
+    with span("mamba.out"):
+        y = y.reshape(B, S, di).to(dt_x.dtype)
+        y = _gated_rmsnorm(y, z, p["gnorm"])
+        y = lac(y, "batch", "seq", "inner")
+        return y @ p["wo"].to(dt_x.dtype), new_cache
 
 
 def mamba_cache_spec(cfg, batch: int):

@@ -16,7 +16,9 @@ nothing inside a period: ``"block"`` and ``"full"`` are the same here.
 
 Blocks are attention, mamba, mLSTM or sLSTM, each followed by a dense MLP
 or an MoE sublayer where the config has one; the MoE aux losses are summed
-over the layers and periods. An encoder–decoder's decoder layers add a
+over the layers and periods. Each sublayer's output is scaled by
+``residual_multiplier`` before its residual add where the config sets
+one. An encoder–decoder's decoder layers add a
 cross-attention sublayer (``lnx``, ``cross``) over the encoder's output,
 and their cache a ``cross`` half of the encoder's length beside the
 self-attention ``kv``. JAX's ``apply_stack`` also takes ``decoder=``, which
@@ -209,13 +211,16 @@ def _sublayer_input(p_norm: dict, x: torch.Tensor) -> torch.Tensor:
         return lac(L.apply_norm(p_norm, x), "batch", "seq", None)
 
 
-def _residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """x + a sublayer's output, at the residual stream's placements: a
+def _residual(x: torch.Tensor, out: torch.Tensor, mult: float) -> torch.Tensor:
+    """x + a sublayer's output (times ``mult``, the config's
+    ``residual_multiplier``), at the residual stream's placements: a
     sublayer whose heads or features are split leaves a partial sum, which
     is reduced here, where the next norm would otherwise pick a layout of
     its own for it (such as a sequence split, which a later product must
     flatten into a strided shard). The output's gradient returns whole
     along the sequence, as the sublayer's input was (``lac_grad``)."""
+    if mult != 1.0:
+        out = out * mult
     return lac(x + lac_grad(out, "batch", "seq", None), "batch", "act_seq", "residual")
 
 
@@ -224,6 +229,7 @@ def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
                 causal: bool = True, max_len: Optional[int] = None):
     """Pre-norm residual layer. Returns (x, new_cache, aux)."""
     aux: Dict[str, torch.Tensor] = {}
+    rm = cfg.residual_multiplier
     h = _sublayer_input(p["ln1"], x)
     if kind == "attn":
         out, kvc, sf = L.apply_attention(
@@ -232,14 +238,14 @@ def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
         )
         if sf:
             add_scan_flops(sf)
-        x = _residual(x, out)
+        x = _residual(x, out, rm)
         new_cache = {"kv": kvc} if kvc is not None else None
         if "cross" in p:  # decoder cross-attention sublayer
             cout, cc = L.apply_cross_attention(
                 p["cross"], cfg, _sublayer_input(p["lnx"], x), enc_out,
                 cache=cache["cross"] if cache else None, mode=mode,
             )
-            x = _residual(x, cout)
+            x = _residual(x, cout, rm)
             if new_cache is not None and cc is not None:
                 new_cache["cross"] = cc
     else:
@@ -248,17 +254,17 @@ def apply_layer(p: dict, cfg, kind: str, x: torch.Tensor, *, positions,
         if apply is None:
             raise ValueError(kind)
         out, new_cache = apply(p[kind], cfg, h, cache=cache, mode=mode)
-        x = _residual(x, out)
+        x = _residual(x, out, rm)
     if "moe" in p:
         h = _sublayer_input(p["ln2"], x)
-        with span("mlp"):
+        with span("moe"):
             y, aux = M.apply_moe(p["moe"], cfg, h)
-        x = _residual(x, y)
+        x = _residual(x, y, rm)
     elif "mlp" in p:
         h = _sublayer_input(p["ln2"], x)
         with span("mlp"):
             y = L.apply_mlp(p["mlp"], cfg, h)
-        x = _residual(x, y)
+        x = _residual(x, y, rm)
     return x, new_cache, aux
 
 

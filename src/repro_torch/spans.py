@@ -13,11 +13,19 @@ shared no-op context: a span costs one attribute read and builds no record
 function.
 
 The spans on the prefill path (``serve.prefill`` ⊃ ``model.embed``,
-``model.stack`` ⊃ each layer's ``layer.norm`` (two), ``attention.qkv``,
-``attention.rope``, ``attention.cache``, ``attention.core``,
-``attention.out`` and ``mlp``, and ``model.head``) are named by layer, not
-by layer index; ``bench/spans.py`` attributes each device kernel to the
-innermost one open when it was launched.
+``model.stack`` ⊃ each layer's ``layer.norm`` (two), its mixer's spans,
+its MLP's or MoE's, and ``model.head``) are named by layer, not by layer
+index; ``bench/spans.py`` attributes each device kernel to the innermost
+one open when it was launched. The mixers': an attention layer's
+``attention.qkv``, ``attention.rope``, ``attention.cache``,
+``attention.core`` and ``attention.out``; a Mamba-2 layer's
+``mamba.proj`` (the five in-projections), ``mamba.conv``, ``mamba.ssd``
+(the scan and the D skip) and ``mamba.out`` (the gated norm and the
+out-projection). After the mixer a dense ``mlp``, or ``moe`` ⊃
+``moe.route`` (router product, softmax, top k, aux losses),
+``moe.dispatch`` (the sort or slots and the gather of rows), ``moe.experts`` (the expert products and activation),
+``moe.shared`` (the shared expert) and ``moe.combine`` (un-permute,
+gates, the sum over k and the shared expert's add).
 """
 from __future__ import annotations
 

@@ -20,6 +20,7 @@ served the first one's cache (a fault of the reference that the port keeps for
 parity). ``tests/test_torch_kernels.py`` holds the flash kernel at those
 head shapes against its plain version on the card.
 """
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,7 +151,11 @@ def test_config_fields_and_full_width_n_params_match_jax(arch):
             a, b = getattr(jc, sub), getattr(tc, sub)
             assert (a is None) == (b is None), (name, sub)
             if a is not None:
-                assert vars(a) == vars(b), (name, sub)
+                # JAX's fields equal; the port's own past them at their defaults
+                # (dropless, shared_d_ff; conv_bias), which change nothing
+                assert vars(a) == {k: v for k, v in vars(b).items() if k in vars(a)}, (name, sub)
+                assert all(getattr(b, f.name) == f.default for f in dataclasses.fields(b)
+                           if f.name not in vars(a)), (name, sub)
         assert tc.param_dtype == torch.float32 and tc.compute_dtype == torch.bfloat16
     full = build_model(get_config(arch)).n_params()
     assert full == jax_model(jax_config(arch)).n_params() == N_PARAMS[arch]

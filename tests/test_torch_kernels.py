@@ -460,6 +460,50 @@ def test_merge_runs_wrapper_checks():
     assert mk.tolist() == [0, 1, 2, 3, 4, 5] and kvmerge.LAUNCHES == before
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_scale_reaches_the_einsum_path_the_twin_and_the_wrapper(causal):
+    """granite-4.0-h-small's logits scale, 1/128 where 1/sqrt(D) would be
+    1/sqrt(128), at D 128 and KV 2 x G 4: the einsum path, the chunked twin
+    (in q and KV blocks) and ``ops.flash_attention``'s plain version agree
+    with the plain version at that scale, which differs from the default."""
+    from repro_torch.models import layers as L
+
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 300, 300, 2, 4, 128, seed=3))
+    want = ref.flash_attention_ref(q, k, v, causal=causal, scale=1 / 128)
+    got = [L._einsum_attention(q, k, v, causal=causal, softcap=0.0, scale=1 / 128),
+           L._flash_attention_qchunked(q, k, v, causal=causal, softcap=0.0, scale=1 / 128,
+                                       block_q=128, block_kv=64),
+           ops.flash_attention(q, k, v, causal=causal, scale=1 / 128)]
+    for g in got:
+        _close(g, want, TOL[torch.float32])
+    default = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert (default - want).abs().max() > 1e-2
+    _close(ops.flash_attention(q, k, v, causal=causal), default, TOL[torch.float32])
+
+
+def _grouped_case(device, dtype):
+    """``torch._grouped_mm``, the dropless MoE dispatch's one grouped
+    product (``models/moe.py``), over rows sorted by expert with an expert
+    that gets no rows, against one product an expert, on ``device``."""
+    g = torch.Generator().manual_seed(14)
+    counts = torch.tensor([5, 0, 17, 9, 1, 16])
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    a = torch.randn((int(counts.sum()), 32), generator=g)
+    w = torch.randn((6, 32, 16), generator=g)
+    got = torch._grouped_mm(a.to(device, dtype), w.to(device, dtype), offs=offs.to(device))
+    assert got.dtype == dtype and got.shape == (a.shape[0], 16)
+    a, w = a.to(dtype).float(), w.to(dtype).float()  # the inputs as the product sees them
+    for e, (lo, hi) in enumerate(zip([0] + offs[:-1].tolist(), offs.tolist())):
+        _close(got[lo:hi].cpu(), (a[lo:hi] @ w[e]).numpy(), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_product_equals_one_product_an_expert(dtype):
+    """The dropless dispatch's grouped product on the CPU, where the CPU
+    tests of the MoE and of the benchmark's granite cell run it."""
+    _grouped_case("cpu", dtype)
+
+
 # ------------------------------------------------------ on the card
 def _need_cuda():
     if not torch.cuda.is_available():
@@ -569,6 +613,38 @@ def test_flash_kernel_at_short_batch_shapes_on_card(S, KV, G):
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=True)
     assert fa.LAUNCHES == before + 1
     assert ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1000, 2304, 7680])
+def test_flash_kernel_at_attention_scale_on_card(S):
+    """granite-4.0-h-small's attention layers: bf16, causal, D 128, KV 8 x
+    G 4, logits times 1/128 in place of 1/sqrt(128): within the kernel's
+    tolerance of the plain version and of the einsum path in f32."""
+    _need_cuda()
+    from repro_torch.models import layers as L
+
+    g = torch.Generator("cuda").manual_seed(S)
+    q = torch.randn((1, S, 8, 4, 128), generator=g, device="cuda").bfloat16()
+    k = torch.randn((1, S, 8, 128), generator=g, device="cuda").bfloat16()
+    v = torch.randn((1, S, 8, 128), generator=g, device="cuda").bfloat16()
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=True, scale=1 / 128)
+    assert fa.LAUNCHES == before + 1
+    errs, ok = ref.flash_attention_check(got, q, k, v, causal=True, scale=1 / 128)
+    assert ok, errs
+    want = L._einsum_attention(q.float(), k.float(), v.float(), causal=True, softcap=0.0,
+                               scale=1 / 128)
+    assert (got.float() - want).norm() / want.norm() <= ref.FLASH_BF16_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_product_equals_one_product_an_expert_on_card(dtype):
+    """The same on the card, in f32 as in bf16: the dispatch takes the one
+    grouped product on every device and dtype."""
+    _need_cuda()
+    _grouped_case("cuda", dtype)
 
 
 @pytest.mark.gpu

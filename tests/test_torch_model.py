@@ -3,6 +3,8 @@ on the same weights: JAX's qwen3-1.7b:smoke parameters, bridged through
 numpy. Compute in f32 on both sides, so the tolerance (1e-4, atol and rtol)
 covers only summation order; the port runs its plain kernel versions here.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -208,7 +210,8 @@ def test_short_prefill_runs_the_flash_kernel(S, dtype):
     cfg = model.cfg
     assert fa.LAUNCHES == before and flops == 0.0
     assert [(tuple(q.shape), kw) for q, _, _, _, kw in calls] == [
-        ((2, S, cfg.num_kv_heads, cfg.q_per_kv, 128), {"causal": True, "softcap": 0.0})
+        ((2, S, cfg.num_kv_heads, cfg.q_per_kv, 128),
+         {"causal": True, "softcap": 0.0, "scale": 1.0 / math.sqrt(128)})
     ] * cfg.num_layers
     for q, k, v, out, kw in calls:
         errs, ok = ref.flash_attention_check(out, q, k, v, **kw)

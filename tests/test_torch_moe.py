@@ -124,3 +124,115 @@ def test_capacity_and_active_flops_match_jax(arch):
         jc, tc = jax_config(arch), get_config(arch)
         assert M._capacity(S, tc) == JM._capacity(S, jc)
         assert M.moe_active_flops(2, S, tc) == JM.moe_active_flops(2, S, jc)
+
+
+# ---- the port's own options: dropless dispatch, the shared expert, counters
+def _port(moe, **over):
+    """granite-moe-3b-a800m:smoke at f32 with the MoE fields ``moe``, and
+    parameters drawn from a seed."""
+    tc = get_config("granite-moe-3b-a800m:smoke").with_(
+        compute_dtype=torch.float32, moe=MoEConfig(**moe), **over)
+    from repro_torch.models.schema import init_tree
+
+    return tc, init_tree(M.moe_spec(tc), torch.Generator().manual_seed(11))
+
+
+BASE = dict(num_experts=8, experts_per_token=2, expert_d_ff=64)
+
+
+@pytest.mark.parametrize("shared", [0, 48])
+def test_dropless_equals_the_capacity_path_where_nothing_overflows(shared):
+    """capacity_factor E/k gives C = S slots an expert, so no pair can be
+    dropped: the dropless dispatch (sorted rows, one grouped product) gives
+    the same output and losses, with and without the shared expert, and
+    both dispatches' counters read no pair dropped and the same load."""
+    cap, p = _port(dict(BASE, capacity_factor=4.0, shared_d_ff=shared))
+    drop, _ = _port(dict(BASE, capacity_factor=4.0, shared_d_ff=shared, dropless=True))
+    assert M._capacity(40, cap) == 40 and ("shared" in p) == bool(shared)
+    x = torch.from_numpy(_x(3, 40, cap.d_model, seed=12))
+    y0, a0 = M.apply_moe(p, cap, x)
+    y1, a1 = M.apply_moe(p, drop, x)
+    _close(y1, y0.numpy(), 1e-5)
+    assert set(a0) == set(a1) == {"moe_aux", "moe_z"}
+    for k in a0:
+        _close(a1[k], float(a0[k]), 1e-6)
+    _, eidx, _ = M._route(p, cap, x)
+    c0, c1 = M.dispatch_counters(cap, eidx), M.dispatch_counters(drop, eidx)
+    assert float(c0["moe_dropped"]) == float(c1["moe_dropped"]) == 0.0
+    assert float(c0["moe_load_max"]) == float(c1["moe_load_max"]) >= 1.0
+    if shared:
+        want = M.apply_mlp(p["shared"], cap, x)
+        y2, _ = M.apply_moe({k: v for k, v in p.items() if k != "shared"}, drop, x)
+        _close(y1, (y2 + want).numpy(), 1e-5)
+
+
+def _expert_sum(p, x, gate, eidx, keep):
+    """The plain sum over each token's k experts of gate times SwiGLU, over
+    the (token, k) pairs that ``keep`` (B,S,K) marks."""
+    want = torch.zeros_like(x)
+    for e in range(p["router"].shape[1]):
+        g = (gate * ((eidx == e) & keep)).sum(-1, keepdim=True)
+        h = torch.nn.functional.silu(x @ p["wg"][e]) * (x @ p["wi"][e])
+        want += g * (h @ p["wo"][e])
+    return want
+
+
+def test_a_forced_imbalance_drops_pairs_only_on_the_capacity_path():
+    """A router that sends nearly every token to experts 0 and 1: the
+    capacity path computes only each expert's first C pairs of a sequence,
+    in (token, k) order, and ``moe_dropped`` counts the rest; the dropless
+    path computes every pair and drops none; both read the same load."""
+    cap, p = _port(dict(BASE, capacity_factor=1.25))
+    drop, _ = _port(dict(BASE, capacity_factor=1.25, dropless=True))
+    p = dict(p, router=p["router"].clone())
+    p["router"][:, :2] += 5.0
+    x = torch.from_numpy(_x(2, 64, cap.d_model, seed=13)).abs()  # the bias wins
+    y0, _ = M.apply_moe(p, cap, x)
+    y1, _ = M.apply_moe(p, drop, x)
+    gate, eidx, _ = M._route(p, drop, x)
+    B, S, K = eidx.shape
+    C = M._capacity(S, cap)
+    # each pair's place in its expert's queue of the sequence
+    ef = eidx.reshape(B, S * K)
+    place = (torch.cumsum(torch.nn.functional.one_hot(ef, 8), 1) - 1).gather(-1, ef[..., None])
+    keep = (place[..., 0] < C).reshape(B, S, K)
+    c0, c1 = M.dispatch_counters(cap, eidx), M.dispatch_counters(drop, eidx)
+    assert float(c0["moe_dropped"]) == float((~keep).sum()) >= 2 * (2 * S - 2 * C) * 0.9
+    assert float(c1["moe_dropped"]) == 0.0
+    assert float(c0["moe_load_max"]) == float(c1["moe_load_max"]) > 3.0  # of 8 at most 4
+    _close(y0, _expert_sum(p, x, gate, eidx, keep).numpy(), 1e-5)
+    _close(y1, _expert_sum(p, x, gate, eidx, torch.ones_like(keep)).numpy(), 1e-5)
+    assert not torch.allclose(y0, y1, atol=1e-3)
+
+
+def test_granite_4_config_from_the_benchmark_file_has_the_published_widths():
+    """``ModelConfig`` built from ``bench/configs/granite-4.0-h-small.json``'s
+    widths (as the benchmark builds it: dicts for the MoE and Mamba fields,
+    a list for the pattern) holds every published width, and 32.2 B
+    parameters."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.models.config import MambaConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import period_layout
+
+    path = Path(__file__).resolve().parents[1] / "bench/configs/granite-4.0-h-small.json"
+    spec = json.loads(path.read_text())
+    cfg = get_config(spec["port"]["arch"]).with_(**spec["widths"])
+    assert cfg == get_config("granite-4.0-h-small")
+    assert (cfg.d_model, cfg.vocab_size, cfg.tie_embeddings) == (4096, 100352, True)
+    assert cfg.moe == MoEConfig(num_experts=72, experts_per_token=10, expert_d_ff=768,
+                                dropless=True, shared_d_ff=1536)
+    assert isinstance(cfg.mamba, MambaConfig) and cfg.mamba.conv_bias
+    di = cfg.mamba.expand * cfg.d_model
+    assert (di // cfg.mamba.head_dim, cfg.mamba.head_dim, cfg.mamba.d_state) == (128, 64, 128)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rotary_pct) == (32, 8, 128, 0.0)
+    kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
+    assert [i for i, k in enumerate(kinds) if k == "attn"] == [5, 15, 25, 35]
+    assert kinds == ["attn" if t == "attention" else t for t in spec["layer_types"]]
+    assert len(period_layout(cfg)) == 10 and all(m for _, m in period_layout(cfg))
+    assert (cfg.embedding_multiplier, cfg.residual_multiplier, cfg.attn_scale,
+            cfg.logits_scaling) == (12, 0.22, 1 / 128, 16)
+    n = build_model(cfg).n_params()
+    assert n == 32_207_337_984 and abs(n / 32.2e9 - 1) < 0.001

@@ -80,9 +80,11 @@ def test_block_sizes_are_keyword_only_as_in_the_reference():
 
     want = inspect.signature(jops.flash_attention.__wrapped__).parameters
     got = inspect.signature(ops.flash_attention).parameters
-    assert list(got) == list(want)
+    # the port's own ``scale`` (None: 1/sqrt(D)) follows JAX's parameters
+    assert list(got) == list(want) + ["scale"]
     for name in want:
         assert got[name].kind == want[name].kind and got[name].default == want[name].default
+    assert got["scale"].kind == inspect.Parameter.KEYWORD_ONLY and got["scale"].default is None
     q, k, v = _inputs(1, 16, 1, 1, 64, seed=1)
     with pytest.raises(TypeError):
         ops.flash_attention(q, k, v, True, 0.0, 64, 64)

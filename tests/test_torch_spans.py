@@ -137,3 +137,41 @@ def test_spans_build_nothing_with_the_profiler_off(small, monkeypatch):
     with torch.inference_mode():
         got, _ = make_prefill_step(model, 64)(params, {"tokens": toks})
     assert torch.equal(got, want)
+
+
+HYBRID = {"layer.norm": 20, "mamba.proj": 9, "mamba.conv": 9, "mamba.ssd": 9, "mamba.out": 9,
+          "attention.qkv": 1, "attention.cache": 1, "attention.core": 1, "attention.out": 1,
+          "moe": 10, "moe.route": 10, "moe.dispatch": 10, "moe.experts": 10, "moe.shared": 10,
+          "moe.combine": 10}
+
+
+def test_hybrid_prefill_records_the_mamba_and_moe_spans(tmp_path):
+    """granite-4.0-h-small:smoke, one period of ten layers: nine Mamba-2
+    mixers and one attention layer without RoPE, each followed by a
+    dropless MoE with a shared expert. Each sublayer's spans once a layer,
+    the MoE's inside ``moe``; every ATen op of the prefill inside a leaf span
+    but for the bookkeeping above."""
+    model = build_model(get_config("granite-4.0-h-small:smoke").with_(
+        param_dtype=torch.float32, compute_dtype=torch.float32))
+    params = model.init(torch.Generator().manual_seed(3))
+    toks = torch.randint(0, model.cfg.vocab_size, (1, 256), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(4))
+    _, events = _trace(tmp_path, lambda: make_prefill_step(model, 256)(params, {"tokens": toks}))
+    sp = _program_spans(events)
+    assert Counter(name for _, _, name in sp) == Counter(
+        {"serve.prefill": 1, "model.embed": 1, "model.stack": 1, "model.head": 1, **HYBRID})
+    for s in sp:
+        if s[2].startswith("moe."):
+            assert _parent(s, sp) == "moe", s[2]
+        elif s[2].startswith(("mamba.", "attention.", "layer.norm", "moe")):
+            assert _parent(s, sp) == "model.stack", s[2]
+    prefill = next(s for s in sp if s[2] == "serve.prefill")
+    leaves = [s for s in sp if s[2] not in ("serve.prefill", "model.stack", "moe")]
+    outside = {e["name"] for e in events if e.get("cat") == "cpu_op"
+               and e["name"].startswith("aten::")
+               and _inside((e["ts"], e["ts"] + e["dur"]), prefill)
+               and not any(_inside((e["ts"], e["ts"] + e["dur"]), leaf) for leaf in leaves)}
+    # the residual multiplier's products (their Python scalar cast on the
+    # CPU)
+    assert outside <= OUTSIDE_LEAVES | {"aten::mul", "aten::to", "aten::_to_copy",
+                                        "aten::empty_strided", "aten::copy_"}
