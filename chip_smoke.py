@@ -29,7 +29,13 @@ exits non-zero without the final line:
                plain version too); the two-run merge at edges and 2^20
                keys; the per-image preprocess at edges, and the batch
                preprocess over one minibatch's local share (171 crops of
-               the corpus) beside the per-image loop it replaces;
+               the corpus) beside the per-image loop it replaces; the SSD
+               scan (``kernels_ssd``) at granite-4.0-h-small's and
+               jamba-1.5-large's widths, with and without an entering
+               state, against ``ssd_chunked`` in f32 plus the D skip, twice
+               for the same bits, and at granite's widths at S 2,304 and
+               7,680 (one ``ssd_s<S>`` line each) timed beside
+               ``ssd_chunked`` and against its bound;
   4. small   — a smoke-width model on the card against the same model on
                the CPU (plain versions) at a prompt that takes the flash path,
                in f32: the f32 flash kernel once a layer per prefill;
@@ -83,7 +89,9 @@ exits non-zero without the final line:
                (f32) on the card against the CPU, then cold and warm
                through the store; one Mamba-2 layer at jamba's full widths
                (f32) in prefill and 16 decode steps against the same layer
-               over the whole sequence; one AdamW step of granite-moe,
+               over the whole sequence, then in bf16 through the SSD
+               kernel, held to the errors of bf16 with the kernel off;
+               one AdamW step of granite-moe,
                grok-1 and jamba at ``:smoke`` on the card against the CPU;
  10. recurrent_encdec — xLSTM and the audio encoder–decoder (f32 params,
                bf16 compute, random weights): xlstm-125m at full width and
@@ -251,6 +259,29 @@ FRONTEND_SEED = 2
 GROK_LAYERS, PEAK_LIMIT = 4, 70e9
 JAMBA_SMOKE_S, SMOKE_PROMPT = 2048, 256
 FAMILY_TRAIN_S = 256
+# SSD scan kernel (kernels_ssd): granite-4.0-h-small's widths (H 128, N
+# 128) and jamba-1.5-large's (H 256, N 64), P 64, chunks of 256; each case
+# its name, widths, batch, S, whether an entering state is given, and
+# whether x is a strided view of the conv's output (as the model hands it);
+# timed at granite's widths, batch 1, at the lengths in SSD_TIMED
+SSD_GRANITE, SSD_JAMBA = {"H": 128, "N": 128}, {"H": 256, "N": 64}
+SSD_P, SSD_CHUNK = 64, 256
+SSD_CASES = [
+    ("granite_s256", SSD_GRANITE, 1, 256, False, True),
+    ("granite_s256_h0", SSD_GRANITE, 1, 256, True, True),
+    ("granite_s2304", SSD_GRANITE, 1, 2304, False, True),
+    ("granite_s2304_h0", SSD_GRANITE, 1, 2304, True, False),
+    ("granite_s7680", SSD_GRANITE, 1, 7680, False, True),
+    ("granite_s7680_h0", SSD_GRANITE, 1, 7680, True, True),
+    ("jamba_s256", SSD_JAMBA, 1, 256, False, True),
+    ("jamba_s2304_h0", SSD_JAMBA, 1, 2304, True, True),
+    ("jamba_s4096_b2", SSD_JAMBA, 2, 4096, False, True),
+    ("granite_s512_b2_h0", SSD_GRANITE, 2, 512, True, False),
+]
+SSD_TIMED = (2304, 7680)
+# the full-width Mamba layer's bf16 errors against f32 through the kernel,
+# as a multiple of the same errors with the kernel turned off
+MAMBA_BF16_ERR_RATIO = 1.05
 # recurrent_encdec path: the JAX package's n_params() at full width;
 # seamless's stub audio frontend is its config's frontend_seq frames
 RECURRENT_ENCDEC = {"xlstm-125m": 188_954_184, "seamless-m4t-large-v2": 1_632_256_000}
@@ -361,7 +392,7 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(["flash_attention", "merge", "preprocess"])
+    build.build(["flash_attention", "merge", "preprocess", "ssd"])
     emit("build", seconds=time.perf_counter() - t0, kernels=build.BUILD_LOG)
 
 
@@ -795,6 +826,138 @@ def _preprocess_batch_case(mean, std):
     del out, want
     torch.cuda.empty_cache()
     return rec
+
+
+def _ssd_inputs(w, B, S, with_h0, strided, seed):
+    """The SSD scan's operands on the card, drawn as the granite cell draws
+    them: x, B and C bf16 (with ``strided``, views of one wider row, as the
+    conv's output is), dt = softplus(N(0, 2)), A = -exp(N(0, 1)), D N(0, 1),
+    and with ``with_h0`` an entering state N(0, 1), all f32."""
+    import torch
+    import torch.nn.functional as F
+
+    H, N, P = w["H"], w["N"], SSD_P
+    g = torch.Generator("cuda").manual_seed(seed)
+    if strided:
+        xbc = torch.randn((B, S, H * P + 2 * N), generator=g, device="cuda").bfloat16()
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    else:
+        x = torch.randn((B, S, H, P), generator=g, device="cuda").bfloat16()
+        Bm = torch.randn((B, S, N), generator=g, device="cuda").bfloat16()
+        Cm = torch.randn((B, S, N), generator=g, device="cuda").bfloat16()
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device="cuda") * math.sqrt(2))
+    A = -torch.exp(torch.randn((H,), generator=g, device="cuda"))
+    D = torch.randn((H,), generator=g, device="cuda")
+    h0 = torch.randn((B, H, N, P), generator=g, device="cuda") if with_h0 else None
+    return x, dt, A, Bm, Cm, D, h0
+
+
+def ssd_work(w, B, S):
+    """(FLOP, bytes) of one SSD scan call as ``bench/metrics/ssd_roofline.py``
+    counts them: (N·L + H·P·L + 4·H·N·P) a token; x and y, B and C in bf16,
+    dt and dt·A in f32, and the final state in f32."""
+    H, N, P, L = w["H"], w["N"], SSD_P, SSD_CHUNK
+    tokens = B * S
+    flops = (N * L + H * P * L + 4 * H * N * P) * tokens
+    nbytes = tokens * (2 * 2 * H * P + 2 * 2 * N + 2 * 4 * H) + 4 * B * H * N * P
+    return flops, nbytes
+
+
+def phase_kernels_ssd():
+    """The SSD scan kernel (``ops.ssd_scan``) against the path it replaces,
+    ``ssd_chunked`` in f32 plus the D skip (``ref.ssd_scan_check``: y within
+    half a bf16 ulp plus 5e-4 of its rms, the final state to a relative
+    1e-5), at each of SSD_CASES, called twice (the same bits both times),
+    one kernel call each; the final state's distance from the plain version
+    in f64 beside that of ``ssd_chunked`` in f32. Then, at granite's widths
+    and each length of SSD_TIMED, its time beside ``ssd_chunked`` + D·x +
+    the bf16 cast, its launches' device times from a profiler trace, the
+    host's time a call, and its bound (``ssd_work`` at the bf16 peak and
+    HBM's bandwidth). One ``kernels_ssd`` line, then one ``ssd_s<S>`` line
+    a timed length; returns the kernels line's ``ssd`` record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as kssd
+    from repro_torch.models.ssm import ssd_chunked
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain path in f32
+    cases, calls = {}, 0
+    for i, (name, w, B, S, with_h0, strided) in enumerate(SSD_CASES):
+        x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(w, B, S, with_h0, strided, seed=3000 + i)
+        before = kssd.CALLS
+        y, h = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=SSD_CHUNK, h0=h0)
+        y2, h2 = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=SSD_CHUNK, h0=h0)
+        torch.cuda.synchronize()
+        n = kssd.CALLS - before
+        calls += n
+        errs, ok = ref.ssd_scan_check(y, h, x, dt, A, Bm, Cm, D, chunk=SSD_CHUNK, h0=h0)
+        _, h64 = ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=SSD_CHUNK, h0=h0,
+                                  compute=torch.float64)
+        _, hf = ssd_chunked(x.float(), dt, dt * A, Bm.float(), Cm.float(), SSD_CHUNK, h0)
+        cases[name] = {
+            "B": B, "S": S, **w, "h0": with_h0, "strided": strided, **errs, "ok": ok,
+            "deterministic": bool(torch.equal(y, y2) and torch.equal(h, h2)),
+            "finite": bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+            "calls": n, "state_rel_err_vs_f64": _rel_err(h, h64),
+            "plain_state_rel_err_vs_f64": _rel_err(hf, h64)}
+        del x, dt, A, Bm, Cm, D, h0, y, h, y2, h2, h64, hf
+        torch.cuda.empty_cache()
+    emit("kernels_ssd", cases=cases,
+         tol={"y": "half a bf16 ulp + y_rms_slack x rms", "y_rms_slack": ref.SSD_Y_RMS_SLACK,
+              "state_rel": ref.SSD_STATE_REL_TOL})
+    for name, c in cases.items():
+        check(c["ok"] and c["deterministic"] and c["finite"] and c["calls"] == 2,
+              f"ssd_scan {name}: against ssd_chunked in f32 + D x: {c}")
+
+    timed = {}
+    for S in SSD_TIMED:
+        w, B = SSD_GRANITE, 1
+        x, dt, A, Bm, Cm, D, _ = _ssd_inputs(w, B, S, False, True, seed=7)
+
+        def kernel():
+            return ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=SSD_CHUNK)
+
+        def plain():
+            y, h = ssd_chunked(x, dt, dt * A, Bm, Cm, SSD_CHUNK)
+            return (y + x.float() * D[None, None, :, None]).to(x.dtype), h
+
+        ms = time_ms(kernel, 50)
+        plain_ms = time_ms(plain, 5, warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):  # checks, allocations and four launches, unsynchronised
+            kernel()
+        host_us = (time.perf_counter() - t0) * 1e6 / 50
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kernel()
+            torch.cuda.synchronize()
+        by_kernel = {ev.key[:60]: ev.device_time_total / 5 / 1e3
+                     for ev in prof.key_averages() if ev.device_time_total > 0}
+        flops, nbytes = ssd_work(w, B, S)
+        b_ms, by = bound(flops, nbytes, PEAK_BF16)
+        err = cases[f"granite_s{S}"]
+        rec = {"B": B, "S": S, **w, "P": SSD_P, "chunk": SSD_CHUNK, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+               "share_of_bound": b_ms / ms, "speedup": plain_ms / ms,
+               "host_us_per_call": host_us, "device_ms_by_kernel": by_kernel,
+               "flops": flops, "bytes": nbytes,
+               **{k: err[k] for k in ("y_ulp_ratio", "y_rel_err", "state_rel_err")}}
+        emit(f"ssd_s{S}", **rec)
+        timed[f"ssd_s{S}"] = rec
+        del x, dt, A, Bm, Cm, D
+        torch.cuda.empty_cache()
+    last = timed[f"ssd_s{SSD_TIMED[-1]}"]
+    return {"calls": calls,
+            "y_ulp_ratio": max(c["y_ulp_ratio"] for c in cases.values()),
+            "state_rel_err": max(c["state_rel_err"] for c in cases.values()),
+            **{k: last[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "share_of_bound")},
+            "timed_shapes": timed}
 
 
 # ------------------------------------------------------------ phases 4-5
@@ -1635,9 +1798,16 @@ def _mamba_full_width():
     against the same layer in train mode over the whole PROMPT + one chunk
     sequence (the chunked scan over one more chunk, not the recurrence);
     then the same prefill and steps at bf16 compute, timed, with their
-    error against f32."""
+    error against f32, through the SSD kernel (``ops.ssd_scan``, one call in
+    the prefill) and again with the kernel turned off (``ssd_chunked``, the
+    path it replaces): the kernel's errors may exceed the plain path's by
+    no more than MAMBA_BF16_ERR_RATIO, so that a wrong y or final state (the
+    decode steps start from it) fails. The f32 prefill keeps
+    ``ssd_chunked``."""
     import torch
 
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as kssd
     from repro_torch.models import ssm
     from repro_torch.models.config import get_config
     from repro_torch.models.schema import init_tree
@@ -1650,17 +1820,27 @@ def _mamba_full_width():
     S_all = PROMPT + cfg.mamba.chunk
     x = torch.randn((BATCH, S_all, cfg.d_model), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(3))
-    out = {}
+    out, bf16 = {}, {}
+    takes = ops.ssd_takes
     with torch.inference_mode():
         want, _ = ssm.apply_mamba(params, cfg.with_(compute_dtype=torch.float32), x,
                                   mode="train")
-        for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for name, dt, kernel in (("float32", torch.float32, True),
+                                 ("bfloat16", torch.bfloat16, True),
+                                 ("bfloat16_plain", torch.bfloat16, False)):
             c = cfg.with_(compute_dtype=dt)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            y_pre, cache = ssm.apply_mamba(params, c, x[:, :PROMPT], mode="prefill")
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
+            calls = kssd.CALLS
+            if not kernel:
+                ops.ssd_takes = lambda *a: False
+            try:
+                t0 = time.perf_counter()
+                y_pre, cache = ssm.apply_mamba(params, c, x[:, :PROMPT], mode="prefill")
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            finally:
+                ops.ssd_takes = takes
+            calls = kssd.CALLS - calls
             ys = []
             for t in range(PROMPT, PROMPT + STEPS):
                 y, cache = ssm.apply_mamba(params, c, x[:, t:t + 1], cache=cache,
@@ -1668,22 +1848,36 @@ def _mamba_full_width():
                 ys.append(y)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            out[name] = {"prefill_ms": (t1 - t0) * 1e3,
+            out[name] = {"prefill_ms": (t1 - t0) * 1e3, "ssd_kernel_calls": calls,
                          "decode_ms_per_step": (t2 - t1) * 1e3 / STEPS,
                          "prefill_rel_err": _rel_err(y_pre, want[:, :PROMPT]),
                          "decode_rel_err": _rel_err(torch.cat(ys, 1),
                                                     want[:, PROMPT:PROMPT + STEPS]),
                          "finite": bool(torch.isfinite(y_pre).all()
                                         and all(torch.isfinite(y).all() for y in ys))}
+            if dt == torch.bfloat16:
+                bf16[name] = (y_pre, torch.cat(ys, 1))
             del y_pre, cache, ys
-    f32 = out["float32"]
+    (kp, kd), (pp, pd) = bf16["bfloat16"], bf16["bfloat16_plain"]
+    kernel_vs_plain = {"prefill_rel_err": _rel_err(kp, pp), "decode_rel_err": _rel_err(kd, pd)}
+    del bf16, kp, kd, pp, pd
+    f32, b16, plain = out["float32"], out["bfloat16"], out["bfloat16_plain"]
     check(f32["prefill_rel_err"] <= 1e-3 and f32["decode_rel_err"] <= 1e-3,
           f"full-width mamba layer: prefill/decode against train mode: {f32}")
-    check(out["bfloat16"]["finite"], "full-width mamba layer: bf16 output not finite")
+    check(b16["finite"] and plain["finite"], "full-width mamba layer: bf16 output not finite")
+    check(f32["ssd_kernel_calls"] == 0 and b16["ssd_kernel_calls"] == 1
+          and plain["ssd_kernel_calls"] == 0,
+          f"full-width mamba layer: SSD kernel calls {out}")
+    check(all(b16[k] <= MAMBA_BF16_ERR_RATIO * plain[k]
+              for k in ("prefill_rel_err", "decode_rel_err")),
+          f"full-width mamba layer: bf16 through the SSD kernel against f32 {b16}, "
+          f"the kernel off {plain}")
     rec = {"d_model": cfg.d_model, "d_inner": ssm.mamba_dims(cfg)[0],
            "heads": ssm.mamba_dims(cfg)[1], "d_state": cfg.mamba.d_state,
            "chunk": cfg.mamba.chunk, "batch": BATCH, "prompt": PROMPT, "steps": STEPS,
-           "tol": "rel 1e-3 (f32) against train mode", **out,
+           "tol": (f"rel 1e-3 (f32) against train mode; bf16 through the kernel within "
+                   f"{MAMBA_BF16_ERR_RATIO}x the kernel-off errors"), **out,
+           "bfloat16_kernel_vs_plain": kernel_vs_plain,
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     emit("mamba_layer", **rec)
     del params, x, want
@@ -1701,11 +1895,13 @@ def phase_families():
     ``tests/test_torch_families.py`` takes it)."""
     import torch
 
+    from repro_torch.kernels import ssd as kssd
     from repro_torch.models.config import get_config
     from repro_torch.models.model import build_model
     from repro_torch.train import optim
 
     out = {}
+    ssd_calls = kssd.CALLS
     phi = get_config("phi-3-vision-4.2b")
     out["phi-3-vision-4.2b"] = _family_arch("phi-3-vision-4.2b", phi, frontend=True,
                                             n_params=FAMILIES["phi-3-vision-4.2b"])
@@ -1740,6 +1936,7 @@ def phase_families():
         emit("family_train", **trains[name])
     launches = {k: sum(r["launches"][k] for r in out.values())
                 for k in ("flash_attention", "merge")}
+    launches["ssd_calls"] = kssd.CALLS - ssd_calls
     emit("families", batch=BATCH, prompt=PROMPT, steps=STEPS, launches=launches,
          n_params={k: v["n_params"] for k, v in out.items()},
          prefill_ms={k: v["runs"]["in_memory"]["prefill_ms"] for k, v in out.items()},
@@ -2897,6 +3094,7 @@ def main() -> int:
     timed_phase("build", phase_build)
     fa_rec = timed_phase("kernels", phase_kernels)
     pp_rec = timed_phase("kernels_preprocess", phase_kernels_preprocess)
+    ssd_rec = timed_phase("kernels_ssd", phase_kernels_ssd)
     small_launches = timed_phase("small", phase_small)
     launches, nchunks, nruns, main_tokens, served = timed_phase("main", phase_main)
     paper_launches = timed_phase("paper_figures", phase_paper_figures, served)
@@ -2961,6 +3159,17 @@ def main() -> int:
          "differing_elements": pp_rec["differing_elements"],
          "ms": pp_rec["ms"], "plain_ms": pp_rec["plain_ms"], "bound_ms": pp_rec["bound_ms"],
          "bound_by": pp_rec["bound_by"], "library_ms": pp_rec["library_ms"]},
+        {"name": "ssd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd.cu",
+         "replaces": "src/repro_torch/models/ssm.py ssd_chunked + the D skip (no TPU kernel)",
+         "launches_per_call": 4,
+         "launches": 4 * (ssd_rec["calls"] + family_launches["ssd_calls"]),
+         "launches_by_path": {"kernels_ssd": 4 * ssd_rec["calls"],
+                              "families": 4 * family_launches["ssd_calls"]},
+         "y_ulp_ratio": ssd_rec["y_ulp_ratio"], "state_rel_err": ssd_rec["state_rel_err"],
+         "ms": ssd_rec["ms"], "plain_ms": ssd_rec["plain_ms"], "bound_ms": ssd_rec["bound_ms"],
+         "bound_by": ssd_rec["bound_by"], "share_of_bound": ssd_rec["share_of_bound"],
+         "library_ms": None, "timed_shapes": ssd_rec["timed_shapes"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["nvidia_smi"], flush=True)

@@ -27,6 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # per-kernel build record: {"seconds", "ptxas"} (empty when loaded from disk)
 BUILD_LOG: Dict[str, dict] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+# the kernels a prefill may reach, built together at the first of them
+# (one nvcc each, in parallel), so that only a first run waits, and once
+PREFILL = ("flash_attention", "ssd")
 _lock = threading.Lock()
 
 
@@ -76,10 +79,11 @@ def build(names: Iterable[str]) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if need be."""
+    """The loaded library of kernel ``name``, built first if need be (with
+    the rest of ``PREFILL`` where it is one of them)."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
+        build(PREFILL if name in PREFILL else [name])
         with _lock:
             lib = _libs.get(name)
             if lib is None:

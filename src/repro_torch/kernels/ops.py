@@ -3,6 +3,10 @@
 Each runs its Hopper kernel on CUDA tensors and its plain version
 (``ref.py``) on CPU tensors; nothing else chooses between the two.
 
+``ssd_scan`` replaces no TPU kernel: it is the Mamba-2 mixer's chunked
+scan with its D skip (``src/repro/models/ssm.py`` ``ssd_chunked``, plain
+jnp there), for the calls ``ssd_takes`` accepts.
+
 ``merge_runs`` and ``preprocess_batch`` compute nothing the JAX package
 does not: ``merge_runs`` is the fold of ``merge_sorted`` over a fetch's
 arrival runs (``src/repro/serve/kvstore.py:452-462``) and the pairwise
@@ -15,6 +19,7 @@ from __future__ import annotations
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kvmerge as _kv
 from repro_torch.kernels import preprocess as _pp
+from repro_torch.kernels import ssd as _ssd
 
 
 def flash_attention(q, k, v, *, causal=True, softcap=0.0, block_q=256, block_kv=256,
@@ -36,6 +41,21 @@ def flash_takes(head_dim, dtype):
     """Whether ``flash_attention`` takes q, k and v of this head dim, all
     three in this dtype."""
     return _fa.takes(head_dim, dtype)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk, h0=None):
+    """The Mamba-2 SSD scan and its D skip, forward only: x (B,S,H,P), dt
+    (B,S,H) f32, A and D (H,) f32, Bm and Cm (B,S,N), h0 (B,H,N,P) f32 or
+    None → (y (B,S,H,P) in x's dtype, ``ssd_chunked``'s y + D·x rounded
+    once; the state after the last token (B,H,N,P) f32)."""
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
+
+
+def ssd_takes(x, dt, Bm, Cm, chunk) -> bool:
+    """Whether ``ssd_scan`` runs its kernel on these operands: CUDA tensors
+    that autograd does not record through, x in bf16, a head dim of 64, a
+    state of 64 or 128, chunks of 256 and S a whole number of them."""
+    return _ssd.takes(*_ssd.properties(x, Bm, chunk, dt, Cm))
 
 
 def merge_sorted(a_keys, a_vals, b_keys, b_vals):

@@ -159,3 +159,88 @@ def preprocess_batch_ref(packed, desc, out, *, mean=None, std=None):
         out[slot] = preprocess_image_ref(crop, out_size=S, flip=bool(flip), mean=mean,
                                          std=std).permute(1, 2, 0)
     return out
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, D, *, chunk, h0=None, compute=torch.float32):
+    """The Mamba-2 SSD scan and its D skip as the SSD kernel decomposes it,
+    in ``compute`` (f32; f64 gives the tests a truth to measure f32 paths
+    against): x (B,S,H,P), dt (B,S,H), A and D (H,), Bm and Cm (B,S,N), h0
+    (B,H,N,P) or None → (y (B,S,H,P) in x's dtype, rounded once after the D
+    skip; the state after the last token (B,H,N,P) in ``compute``).
+
+    cum is the inclusive sum of dt·A (rounded to ``compute``) over each
+    chunk's tokens, in f64, and enters ``compute`` only as an exponent:
+    cum_end − cum_s, cum_q − cum_s, cum_q, cum_end. Per chunk: the state
+    S_c = Σ_s (B_s·w_s) ⊗ x_s with w_s = dt_s·exp(cum_end − cum_s); the
+    entering states by h ← h·exp(cum_end) + S_c from h0 (or 0); y_q =
+    exp(cum_q)·C_q·h_prev + Σ_{s≤q} (C_q·B_s)·exp(cum_q − cum_s)·dt_s·x_s +
+    D·x_q (dt on the decay side, where ``models.ssm.ssd_chunked`` scales
+    x)."""
+    Bsz, S, H, P = x.shape
+    L = chunk
+    if S % L:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {L}")
+    nc = S // L
+    xf = x.to(compute).reshape(Bsz, nc, L, H, P)
+    dtc = dt.to(compute).reshape(Bsz, nc, L, H)
+    Bc = Bm.to(compute).reshape(Bsz, nc, L, -1)
+    Cc = Cm.to(compute).reshape(Bsz, nc, L, -1)
+    cum = torch.cumsum((dtc * A.to(compute)).double(), 2)  # (B,nc,L,H)
+    w = dtc * torch.exp((cum[:, :, -1:] - cum).to(compute))
+    states = torch.einsum("bcsn,bcsh,bcshp->bchnp", Bc, w, xf)
+    h = (torch.zeros((Bsz, H, Bc.shape[-1], P), dtype=compute, device=x.device)
+         if h0 is None else h0.to(compute))
+    mask = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()[None, :, :, None]
+    Df = D.to(compute)
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    for c in range(nc):
+        cq = cum[:, c]  # (B,L,H)
+        inter = torch.einsum("bqn,bhnp->bqhp", Cc[:, c], h) * torch.exp(cq.to(compute))[..., None]
+        seg = torch.where(mask, (cq[:, :, None, :] - cq[:, None, :, :]).to(compute), 0.0)
+        cb = torch.einsum("bqn,bsn->bqs", Cc[:, c], Bc[:, c])
+        m = torch.where(mask, cb[..., None] * torch.exp(seg) * dtc[:, c, None], 0.0)
+        intra = torch.einsum("bqsh,bshp->bqhp", m, xf[:, c])
+        y[:, c * L:(c + 1) * L] = (inter + intra + xf[:, c] * Df[:, None]).to(x.dtype)
+        h = h * torch.exp(cq[:, -1].to(compute))[..., None, None] + states[:, c]
+    return y, h
+
+
+# What the SSD kernel is held to, against ``models.ssm.ssd_chunked`` in f32
+# plus the D skip (the path it replaces) on the same inputs: y within one
+# bf16 rounding of that f32 value (half a bf16 ulp of it), give or take
+# 5e-4 of the tensor's rms, and the final state to a relative 1e-5
+# (Frobenius). The slack covers the f32 path's own error: its sums of dt·A
+# reach the thousands, and its exp(cum_q − cum_s) of two f32 sums is off by
+# |cum|·2^-24 in the exponent, which puts its y up to 1e-4 of the rms away
+# from an f64 evaluation at 7,680 tokens (on the CPU, 16 heads; 3e-6 of the
+# state). A scan whose f32 operands enter its products in one bf16 term
+# reads some 20 times this limit.
+SSD_STATE_REL_TOL = 1e-5
+SSD_Y_RMS_SLACK = 5e-4
+
+
+def half_ulp_bf16(v: torch.Tensor) -> torch.Tensor:
+    """Half a bf16 ulp of each f32 value: the most a rounding to bf16 moves it."""
+    _, e = torch.frexp(v.float())  # |v| = m·2^e, m in [0.5, 1)
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 9)
+
+
+def ssd_scan_check(y, h_last, x, dt, A, Bm, Cm, D, *, chunk, h0=None):
+    """Errors of a kernel's (y, h_last) against ``ssd_chunked`` in f32 plus
+    the D skip: ``y_ulp_ratio``, the largest |y − want| over its limit (1 =
+    one bf16 rounding), ``y_rel_err`` and ``y_changed`` (the share of
+    elements that differ from the f32 path's value rounded to bf16),
+    ``state_rel_err``. Returns (errors, within tolerance)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    want, want_h = ssd_chunked(x.float(), dt.float(), dt.float() * A.float(), Bm.float(),
+                               Cm.float(), chunk, None if h0 is None else h0.float())
+    want = want + x.float() * D.float()[None, None, :, None]
+    d = (y.float() - want).abs()
+    limit = half_ulp_bf16(want) + SSD_Y_RMS_SLACK * want.square().mean().sqrt()
+    errs = {"y_ulp_ratio": (d / limit).max().item(),
+            "y_rel_err": (d.norm() / want.norm()).item(),
+            "y_changed": (y != want.to(y.dtype)).float().mean().item(),
+            "state_rel_err": ((h_last.float() - want_h).norm() / want_h.norm()).item()}
+    ok = errs["y_ulp_ratio"] <= 1.0 and errs["state_rel_err"] <= SSD_STATE_REL_TOL
+    return errs, ok

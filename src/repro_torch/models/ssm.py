@@ -8,7 +8,12 @@ Within chunks of length L the causal decay matrix M[q,s] = exp(cum_q −
 cum_s) (entries ≤ 1) turns the recurrence into two matrix products; across
 chunks the state is carried by a scan over the chunks, a Python loop here
 where JAX runs ``jax.lax.associative_scan``. Decode runs the recurrence
-one token at a time. The JAX module has no Pallas kernel.
+one token at a time. The JAX module has no Pallas kernel. A forward-only
+prefill on the card whose shapes ``ops.ssd_takes`` accepts (bf16, P 64, N
+64 or 128, chunks of 256) runs the Hopper kernel ``ops.ssd_scan`` in place
+of ``ssd_chunked`` and the D skip (``kernels/csrc/ssd.cu``: the same
+arithmetic in f32 grade, y rounded once to bf16); everything else runs
+``ssd_chunked``.
 
 ``MambaConfig.conv_bias`` (the port's own) adds a bias ``conv_b`` after
 the depthwise conv. Spans: ``mamba.proj`` (the five in-projections),
@@ -22,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.schema import ParamSpec
 from repro_torch.sharding import lac, lac_grad, per_shard
 from repro_torch.spans import span
@@ -156,6 +162,7 @@ def ssd_scan_flops(B, S, H, P, N, chunk) -> float:
 # the state (B,H,N,P)
 _BSHP, _BSH = ("batch", None, "inner_heads", None), ("batch", None, "inner_heads")
 _BSN, _STATE = ("batch", None, None), ("batch", "inner_heads", None, None)
+_H = ("inner_heads",)
 
 
 def apply_mamba(p: dict, cfg, x: torch.Tensor, *, cache: Optional[dict] = None,
@@ -186,7 +193,6 @@ def apply_mamba(p: dict, cfg, x: torch.Tensor, *, cache: Optional[dict] = None,
     with span("mamba.ssd"):
         dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B,S,H)
         A = -torch.exp(p["A_log"].float())  # (H,) negative
-        a_log = dt * A[None, None, :]  # ≤ 0
 
         xh = xin.reshape(B, S, H, P)
         xh = lac(xh, "batch", None, "inner_heads", None)
@@ -194,21 +200,31 @@ def apply_mamba(p: dict, cfg, x: torch.Tensor, *, cache: Optional[dict] = None,
             if S != 1 or cache is None:
                 raise ValueError("decode takes one token per sequence and a cache")
             h0 = cache["ssm"].float()  # (B,H,N,P)
-            a = torch.exp(a_log[:, 0])  # (B,H)
+            a = torch.exp(dt[:, 0] * A)  # (B,H)
             xb = (xh[:, 0] * dt[:, 0, :, None]).float()  # (B,H,P)
             upd = torch.einsum("bn,bhp->bhnp", Bm[:, 0].float(), xb)
             h = h0 * a[..., None, None] + upd
             y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)[:, None]  # (B,1,H,P)
+            y = y + xh.float() * p["Dskip"].float()[None, None, :, None]
             new_cache = {"conv": new_conv, "ssm": h}
         else:
             # the scan is independent per batch row and head: on DTensors it
             # runs on each device's shards, one dispatch for the whole scan
             h0 = (cache["ssm"].float(),) if cache else ()
-            y, h_last = per_shard(
-                lambda *a: ssd_chunked(*a[:5], mc.chunk, *a[5:]), (xh, dt, a_log, Bm, Cm, *h0),
-                (_BSHP, _BSH, _BSH, _BSN, _BSN) + (_STATE,) * len(h0), (_BSHP, _STATE))
+            Dskip = p["Dskip"].float()
+            if mode == "prefill" and ops.ssd_takes(xh, dt, Bm, Cm, mc.chunk):
+                # the kernel: the scan and the D skip, y rounded once
+                y, h_last = per_shard(
+                    lambda *a: ops.ssd_scan(*a[:6], chunk=mc.chunk, h0=a[6] if h0 else None),
+                    (xh, dt, A, Bm, Cm, Dskip, *h0),
+                    (_BSHP, _BSH, _H, _BSN, _BSN, _H) + (_STATE,) * len(h0), (_BSHP, _STATE))
+            else:
+                a_log = dt * A[None, None, :]  # ≤ 0
+                y, h_last = per_shard(
+                    lambda *a: ssd_chunked(*a[:5], mc.chunk, *a[5:]), (xh, dt, a_log, Bm, Cm, *h0),
+                    (_BSHP, _BSH, _BSH, _BSN, _BSN) + (_STATE,) * len(h0), (_BSHP, _STATE))
+                y = y + xh.float() * Dskip[None, None, :, None]
             new_cache = {"conv": new_conv, "ssm": h_last} if mode == "prefill" else None
-        y = y + xh.float() * p["Dskip"].float()[None, None, :, None]
     with span("mamba.out"):
         y = y.reshape(B, S, di).to(dt_x.dtype)
         y = _gated_rmsnorm(y, z, p["gnorm"])

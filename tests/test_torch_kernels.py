@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kvmerge, ops, ref
+from repro_torch.kernels import ssd as kssd
 
 try:  # the JAX reference; the machine with the card has no jax
     import jax.numpy as jnp
@@ -504,6 +505,58 @@ def test_grouped_product_equals_one_product_an_expert(dtype):
     _grouped_case("cpu", dtype)
 
 
+# ------------------------------------------------------------ SSD scan
+SSD_TAKEN = dict(device_type="cuda", records=False, dtype=torch.bfloat16, head_dim=64,
+                 d_state=128, chunk=256, seq=7680)
+
+
+@pytest.mark.parametrize("change,takes", [
+    ({}, True),
+    ({"d_state": 64, "seq": 256}, True),
+    ({"device_type": "cpu"}, False),
+    ({"records": True}, False),
+    ({"dtype": torch.float32}, False),
+    ({"head_dim": 16}, False),
+    ({"d_state": 16}, False),
+    ({"chunk": 32}, False),
+    ({"seq": 7680 + 24}, False),
+], ids=["granite", "jamba", "device", "grad", "dtype", "head_dim", "d_state", "chunk",
+        "ragged_seq"])
+def test_ssd_takes_one_rule_each(change, takes):
+    """The kernel serves a scan only where every rule holds: CUDA, no
+    gradient recorded, bf16, P 64, N 64 or 128, chunks of 256, S a whole
+    number of chunks (an entering state is no rule: the kernel takes one)."""
+    assert kssd.takes(**{**SSD_TAKEN, **change}) is takes
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_ops_ssd_takes_reads_the_operands(monkeypatch, grad):
+    seen = []
+    monkeypatch.setattr(kssd, "takes", lambda *a: seen.append(a) or True)
+    x = torch.zeros((1, 512, 4, 64), dtype=torch.bfloat16, requires_grad=grad)
+    dt = torch.zeros((1, 512, 4))
+    Bm = Cm = torch.zeros((1, 512, 128), dtype=torch.bfloat16)
+    assert ops.ssd_takes(x, dt, Bm, Cm, 256)
+    assert seen == [("cpu", grad, torch.bfloat16, 64, 128, 256, 512)]
+    monkeypatch.undo()
+    assert not ops.ssd_takes(x, dt, Bm, Cm, 256)  # a CPU tensor keeps ssd_chunked
+
+
+def test_ssd_wrapper_reads_the_model_views():
+    """x, B and C as the model hands them (views of the conv's output: a
+    token stride of H·P + 2N) are read in place; a head dim or a token that
+    is not contiguous is refused."""
+    xbc = torch.zeros((2, 512, 4 * 64 + 2 * 128), dtype=torch.bfloat16)
+    x = xbc[..., :256].reshape(2, 512, 4, 64)
+    Bm, Cm = xbc[..., 256:384], xbc[..., 384:]
+    assert kssd._rows("x", x) == (512 * 512, 512)
+    assert kssd._rows("B", Bm) == kssd._rows("C", Cm) == (512 * 512, 512)
+    with pytest.raises(ValueError, match="cannot read in place"):
+        kssd._rows("x", x.transpose(2, 3))
+    with pytest.raises(ValueError, match="cannot read in place"):
+        kssd._rows("B", xbc[..., 1:129])  # a token's row starts off 16 bytes
+
+
 # ------------------------------------------------------ on the card
 def _need_cuda():
     if not torch.cuda.is_available():
@@ -765,3 +818,58 @@ def test_merge_runs_kernel_matches_plain_on_card(case):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     order = np.argsort(keys.astype(np.float64), kind="stable")
     np.testing.assert_array_equal(got[1].cpu().numpy(), vals[order])
+
+
+def _ssd_operands(H, N, B, S, with_h0, seed):
+    """The scan's operands as the model hands them, on the card: x, B and C
+    bf16 views of one (B, S, H·P + 2N) tensor, dt = softplus(N(0, 2)),
+    A = −exp(N(0, 1)), D N(0, 1), h0 N(0, 1) f32."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    xbc = torch.randn((B, S, H * 64 + 2 * N), generator=g, device="cuda").bfloat16()
+    x = xbc[..., :H * 64].reshape(B, S, H, 64)
+    Bm, Cm = xbc[..., H * 64:H * 64 + N], xbc[..., H * 64 + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g, device="cuda") * 2**0.5)
+    A = -torch.exp(torch.randn((H,), generator=g, device="cuda"))
+    D = torch.randn((H,), generator=g, device="cuda")
+    h0 = torch.randn((B, H, N, 64), generator=g, device="cuda") if with_h0 else None
+    return x, dt, A, Bm, Cm, D, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero_state", "h0"])
+@pytest.mark.parametrize("S", [256, 2304, 7680])
+@pytest.mark.parametrize("H,N", [(128, 128), (256, 64)], ids=["granite", "jamba"])
+def test_ssd_kernel_matches_the_f32_path_on_card(H, N, S, with_h0):
+    """``ops.ssd_scan`` against ``ssd_chunked`` in f32 + the D skip on the
+    same operands: y within one bf16 rounding of that f32 value, the final
+    state to a relative 1e-5 (``ref.ssd_scan_check``)."""
+    _need_cuda()
+    ops_in = _ssd_operands(H, N, 1, S, with_h0, seed=S + N + with_h0)
+    x, dt, A, Bm, Cm, D, h0 = ops_in
+    before = kssd.CALLS
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, h0=h0)
+    assert kssd.CALLS == before + 1
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    errs, ok = ref.ssd_scan_check(y, h, *ops_in[:6], chunk=256, h0=h0)
+    assert ok, errs
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_is_deterministic_on_card():
+    _need_cuda()
+    x, dt, A, Bm, Cm, D, h0 = _ssd_operands(128, 128, 2, 2304, True, seed=5)
+    y1, h1 = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, h0=h0)
+    y2, h2 = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, h0=h0)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_what_it_does_not_take_on_card():
+    _need_cuda()
+    x, dt, A, Bm, Cm, D, _ = _ssd_operands(8, 128, 1, 512, False, seed=1)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.ssd_scan(x.float(), dt, A, Bm, Cm, D, chunk=256)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.ssd_scan(x[:, :300], dt[:, :300], A, Bm[:, :300], Cm[:, :300], D, chunk=256)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ops.ssd_scan(x, dt.double(), A, Bm, Cm, D, chunk=256)

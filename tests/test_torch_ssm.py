@@ -10,7 +10,11 @@ cross-chunk loop against JAX's associative scan included):
     ``_gated_rmsnorm``;
   * ``apply_mamba`` (jamba-1.5-large-398b:smoke widths) in train mode, in
     prefill and in 4 decode steps from the prefill's cache;
-  * the ``identity_conv`` and ``trunc`` inits.
+  * the ``identity_conv`` and ``trunc`` inits;
+  * ``ops.ssd_scan``'s plain CPU version (the SSD kernel's decomposition:
+    dt on the decay side, the D skip and the rounding to x's dtype last)
+    against the JAX ``ssd_chunked`` plus the D skip, and ``apply_mamba``'s
+    prefill the same whichever way its dispatch goes.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +26,7 @@ from repro.models import ssm as JS
 from repro.models.config import get_config as jax_config
 from repro.models.schema import ParamSpec as JParamSpec
 from repro.models.schema import materialize as jax_materialize
+from repro_torch.kernels import ops, ref
 from repro_torch.models import ssm as S
 from repro_torch.models.config import get_config
 from repro_torch.models.schema import ParamSpec, materialize
@@ -59,6 +64,59 @@ def test_ssd_chunked_matches_jax(nc, with_h0):
     assert ty.dtype == th.dtype == torch.float32
     _close(ty, jy)
     _close(th, jh)
+
+
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_plain_matches_jax(nc, with_h0, dtype):
+    """``ops.ssd_scan`` on CPU tensors (the plain version) against JAX's
+    ``ssd_chunked`` plus D·x, on ``test_ssd_chunked_matches_jax``'s shapes:
+    in f32 at its tolerance; with x, B and C in bf16, y rounded once to bf16
+    from the same sums (within half a bf16 ulp of JAX's f32 value, give or
+    take 1e-5 of the largest)."""
+    L = 16
+    x, dt, a_log, Bm, Cm, h0 = _ssd_inputs(2, L * nc, 3, 8, 4, seed=nc)
+    A = (a_log / dt).mean((0, 1)).astype(np.float32)  # the one A a head that made a_log
+    a_log = (dt * A).astype(np.float32)
+    D = np.random.default_rng(nc).standard_normal(3).astype(np.float32)
+    x, Bm, Cm = (torch.from_numpy(a).to(dtype).float().numpy() for a in (x, Bm, Cm))
+    h0 = h0 if with_h0 else None
+    jy, jh = JS.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, a_log, Bm, Cm)), L,
+                            None if h0 is None else jnp.asarray(h0))
+    want = np.asarray(jy) + x * D[None, None, :, None]
+    ty, th = ops.ssd_scan(*(torch.from_numpy(a).to(dtype) for a in (x,)),
+                          torch.from_numpy(dt), torch.from_numpy(A),
+                          *(torch.from_numpy(a).to(dtype) for a in (Bm, Cm)),
+                          torch.from_numpy(D), chunk=L,
+                          h0=None if h0 is None else torch.from_numpy(h0))
+    assert ty.dtype == dtype and th.dtype == torch.float32
+    _close(th, jh)
+    if dtype == torch.float32:
+        _close(ty, want)
+    else:
+        w = torch.from_numpy(want)
+        err = (ty.float() - w).abs()
+        assert bool((err <= ref.half_ulp_bf16(w) + 1e-5 * w.abs().max()).all())
+
+
+def test_ssd_scan_plain_is_nearer_f64_than_the_f32_path():
+    """The plain version keeps its sums of dt·A in f64 and enters f32 only
+    as exponents, as the kernel does: its state is far nearer an f64
+    evaluation than ``ssd_chunked``'s f32 one, on the benchmark's draws
+    (dt = softplus(N(0, 2)), A = −exp(N(0, 1)))."""
+    g = torch.Generator().manual_seed(0)
+    B, Sq, H, P, N, L = 1, 1024, 4, 16, 32, 256
+    x = torch.randn((B, Sq, H, P), generator=g).bfloat16()
+    Bm, Cm = (torch.randn((B, Sq, N), generator=g).bfloat16() for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((B, Sq, H), generator=g) * 2**0.5)
+    A = -torch.exp(torch.randn((H,), generator=g))
+    D = torch.randn((H,), generator=g)
+    _, h = ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=L)
+    _, h64 = ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=L, compute=torch.float64)
+    _, hf = S.ssd_chunked(x.float(), dt, dt * A, Bm.float(), Cm.float(), L)
+    rel = lambda a: ((a.double() - h64).norm() / h64.norm()).item()  # noqa: E731
+    assert rel(h) < 3e-7 < rel(hf) < ref.SSD_STATE_REL_TOL
 
 
 def test_ssd_chunked_refuses_a_ragged_sequence():
@@ -155,3 +213,58 @@ def test_identity_conv_and_trunc_inits():
             for _ in range(2))
     assert torch.equal(a, b) and float(a.abs().max()) <= 3 * 0.02
     assert abs(float(a.std()) - 0.02 * 0.9866) < 0.001  # a ±3σ cut keeps std 0.9866σ
+
+
+def _forced_pair(monkeypatch, dtype, mode="prefill", S_=64):
+    """apply_mamba on jamba:smoke (chunk 32) at ``dtype`` compute, once as
+    the CPU dispatch goes (``ssd_chunked``) and once with ``ops.ssd_takes``
+    forced true (``ops.ssd_scan``'s plain version, as the kernel computes)."""
+    _, tc, _, tp = _mamba_pair(seed=2)
+    tc = tc.with_(compute_dtype=dtype)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, S_, tc.d_model)).astype(np.float32))
+    calls = []
+    real = ops.ssd_scan
+    out = [S.apply_mamba(tp, tc, x, mode=mode)]
+    monkeypatch.setattr(ops, "ssd_takes", lambda *a: True)
+    monkeypatch.setattr(ops, "ssd_scan", lambda *a, **k: calls.append(1) or real(*a, **k))
+    out.append(S.apply_mamba(tp, tc, x, mode=mode))
+    return out, calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_mamba_prefill_alike_whichever_path(monkeypatch, dtype):
+    """The prefill's output and cache are the same on both paths: the conv
+    state bit for bit, the SSM state to 1e-5, and the output to f32's
+    tolerance, or in bf16 to that of a bf16 rounding of the scan's output
+    carried through the gated norm and the out-projection."""
+    ((y0, c0), (y1, c1)), calls = _forced_pair(monkeypatch, dtype)
+    assert calls == [1]
+    assert y1.dtype == y0.dtype == dtype
+    assert torch.equal(c0["conv"], c1["conv"])
+    assert ((c1["ssm"] - c0["ssm"]).norm() / c0["ssm"].norm()).item() <= 1e-5
+    if dtype == torch.float32:
+        _close(y1, y0, tol=1e-5)
+    else:
+        assert ((y1.float() - y0.float()).norm() / y0.float().norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("mode", ["train", "decode"])
+def test_apply_mamba_train_and_decode_keep_their_paths(monkeypatch, mode):
+    """Train mode and decode never call ``ops.ssd_scan``, whatever the
+    dispatch says: train keeps ``ssd_chunked``, decode its one-step update."""
+    _, tc, _, tp = _mamba_pair(seed=3)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 64, tc.d_model)).astype(np.float32))
+    _, cache = S.apply_mamba(tp, tc, x, mode="prefill")
+    want = (S.apply_mamba(tp, tc, x, mode="train") if mode == "train" else
+            S.apply_mamba(tp, tc, x[:, :1], cache=cache, mode="decode"))
+
+    def refuse(*a, **k):
+        raise AssertionError("ops.ssd_scan called")
+
+    monkeypatch.setattr(ops, "ssd_takes", lambda *a: True)
+    monkeypatch.setattr(ops, "ssd_scan", refuse)
+    got = (S.apply_mamba(tp, tc, x, mode="train") if mode == "train" else
+           S.apply_mamba(tp, tc, x[:, :1], cache=cache, mode="decode"))
+    assert torch.equal(got[0], want[0])
