@@ -297,6 +297,21 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+# each kernel library's C entry points, whose successful calls
+# ``build.LAUNCHES`` counts by name; a phase reports their sum
+KERNEL_ENTRIES = {"flash_attention": ("fa_forward",), "merge": ("merge_sorted", "merge_runs"),
+                  "preprocess": ("preprocess_image", "preprocess_batch"),
+                  "ssd": ("ssd_forward",)}
+
+
+def launched(kernel: str) -> int:
+    """Calls of ``kernel``'s C entries so far in this process (``ssd``:
+    host calls of four kernel launches each)."""
+    from repro_torch.kernels import build
+
+    return sum(build.LAUNCHES[e] for e in KERNEL_ENTRIES[kernel])
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` in ms over ``iters`` warm calls. A spin
     kernel holds the card while the host enqueues the calls, twice as long
@@ -460,7 +475,7 @@ def phase_kernels():
     torch.backends.cudnn.allow_tf32 = False
     results = {}
     # the prefills of the benchmark's short-batch cells (bench/traffic/
-    # short_batch.json), which take the kernel below FLASH_THRESHOLD: one
+    # short_batch.json), which ``layers.attention_path`` sends to the kernel: one
     # block of lengths, B = 16,384 // S, causal, D 128, at glm4-9b's KV 2 ×
     # G 16 and mistral-nemo-12b's KV 8 × G 4
     short_batch = [(f"short_s{S}_g{G}_bf16", 16384 // S, S, KV, G, 128, torch.bfloat16,
@@ -880,18 +895,17 @@ def phase_kernels_ssd():
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import ssd as kssd
     from repro_torch.models.ssm import ssd_chunked
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain path in f32
     cases, calls = {}, 0
     for i, (name, w, B, S, with_h0, strided) in enumerate(SSD_CASES):
         x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(w, B, S, with_h0, strided, seed=3000 + i)
-        before = kssd.CALLS
+        before = launched("ssd")
         y, h = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=SSD_CHUNK, h0=h0)
         y2, h2 = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=SSD_CHUNK, h0=h0)
         torch.cuda.synchronize()
-        n = kssd.CALLS - before
+        n = launched("ssd") - before
         calls += n
         errs, ok = ref.ssd_scan_check(y, h, x, dt, A, Bm, Cm, D, chunk=SSD_CHUNK, h0=h0)
         _, h64 = ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=SSD_CHUNK, h0=h0,
@@ -966,7 +980,6 @@ def phase_small():
     at a prompt past the flash threshold."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.config import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve import generate
@@ -982,7 +995,7 @@ def phase_small():
     gpu_params = tree_map(lambda t: t.cuda(), params)
     max_len = SMALL_S + 6
     lg_cpu, _, _ = model.apply(params, {"tokens": prompt}, mode="prefill", max_len=max_len)
-    fa.LAUNCHES = 0
+    f0 = launched("flash_attention")
     lg_gpu, _, _ = model.apply(gpu_params, {"tokens": prompt.cuda()}, mode="prefill",
                                max_len=max_len)
     err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
@@ -992,11 +1005,11 @@ def phase_small():
     t_gpu = generate(model, gpu_params, prompt.cuda(), steps=4, max_len=max_len)
     check(torch.equal(t_cpu, t_gpu.cpu()), "smoke-width tokens differ card vs CPU")
     # the f32 flash kernel, once an attention layer per prefill (two prefills)
-    want = 2 * _flash_per_prefill(cfg, SMALL_S)
-    check(fa.LAUNCHES == want, f"small: {fa.LAUNCHES} f32 flash launches, expected {want}")
-    emit("small", prefill_logits_max_abs_err=err, tokens_equal=True,
-         flash_launches=fa.LAUNCHES)
-    return fa.LAUNCHES
+    want = 2 * sum(prefill_flash_calls(cfg, SMALL_S).values())
+    flash = launched("flash_attention") - f0
+    check(flash == want, f"small: {flash} f32 flash launches, expected {want}")
+    emit("small", prefill_logits_max_abs_err=err, tokens_equal=True, flash_launches=flash)
+    return flash
 
 
 class _Timed:
@@ -1086,8 +1099,6 @@ def _bits(t):
 def phase_main():
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import kvmerge
     from repro_torch.serve import generate
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -1130,7 +1141,7 @@ def phase_main():
     store._assemble = assemble_spy
 
     def drive(kv_store):
-        fa0, mg0, f0 = fa.LAUNCHES, kvmerge.LAUNCHES, store.stats.fetches
+        fa0, mg0, f0 = launched("flash_attention"), launched("merge"), store.stats.fetches
         a0 = len(runs_per_fetch)
         t0 = time.perf_counter()
         toks = generate(model, params, prompt, steps=STEPS, max_len=MAX_LEN,
@@ -1143,8 +1154,8 @@ def phase_main():
         n_dec = sum(1 for lab, _ in phases if lab == "decode")
         run = {"total_ms": total, "phase_ms": ms, "decode_steps": n_dec,
                "decode_tok_per_s": BATCH * n_dec / (ms["decode"] / 1e3) if n_dec else None,
-               "flash_launches": fa.LAUNCHES - fa0,
-               "merge_launches": kvmerge.LAUNCHES - mg0,
+               "flash_launches": launched("flash_attention") - fa0,
+               "merge_launches": launched("merge") - mg0,
                "fetches": store.stats.fetches - f0,
                "runs_per_fetch": runs_per_fetch[a0:]}
         # time to first token on the decode side: the cache and the first
@@ -1153,12 +1164,11 @@ def phase_main():
         return toks, run
 
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = 0
-    kvmerge.LAUNCHES = 0
+    base = {k: launched(k) for k in ("flash_attention", "merge")}
     cold, r_cold = drive(store)  # prefill, put, fetch, decode
     warm, r_warm = drive(store)  # attach: fetch, decode
     mem, r_mem = drive(None)  # prefill, decode
-    launches = {"flash_attention": fa.LAUNCHES, "merge": kvmerge.LAUNCHES}
+    launches = {k: launched(k) - n for k, n in base.items()}
 
     check(cold.shape == (BATCH, STEPS) and bool(((cold >= 0) & (cold < cfg.vocab_size)).all()),
           "tokens out of range")
@@ -1218,12 +1228,9 @@ def phase_paper_figures(served: dict):
     from benchmarks_torch import common
     from benchmarks_torch import fig20_kv_serving as fig20
     from examples_torch import serving as serving_example
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import kvmerge
-    from repro_torch.kernels import preprocess as kpp
 
     cfg = served["cfg"]
-    fa.LAUNCHES = kvmerge.LAUNCHES = kpp.LAUNCHES = 0
+    base = {k: launched(k) for k in ("flash_attention", "merge", "preprocess")}
     rows, argv, seconds = io.StringIO(), sys.argv, {}
     common.DEVICE, common.OUT, common.FAILURES = "cuda", rows, 0
     try:
@@ -1249,8 +1256,7 @@ def phase_paper_figures(served: dict):
         seconds["examples_torch/serving.py"] = time.perf_counter() - t0
     finally:
         sys.argv, common.OUT = argv, None
-    launches = {"flash_attention": fa.LAUNCHES, "merge": kvmerge.LAUNCHES,
-                "preprocess": kpp.LAUNCHES}
+    launches = {k: launched(k) - n for k, n in base.items()}
     claims = [line.split(",", 2) for line in rows.getvalue().splitlines()
               if line.startswith("claim/")]
     failed = [name[len("claim/"):] for name, value, _ in claims if value != "PASS"]
@@ -1312,8 +1318,6 @@ def failover_run(model, params, prompt, prompt2, want, plane):
     from repro_torch.core import standby_takeover
     from repro_torch.core.router import QUARANTINED
     from repro_torch.core.rpc import RpcError
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import kvmerge
     from repro_torch.serve import KvCacheStore, ServingCrash, attach_store, generate
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -1349,7 +1353,7 @@ def failover_run(model, params, prompt, prompt2, want, plane):
     def drive(label, kv_store, *, meets_dead=False):
         """One ``generate`` through ``kv_store``; with ``meets_dead`` it must
         fail, and the record keeps what it raised."""
-        fa0, mg0, a0 = fa.LAUNCHES, kvmerge.LAUNCHES, len(runs)
+        fa0, mg0, a0 = launched("flash_attention"), launched("merge"), len(runs)
         t0 = time.perf_counter()
         rec = {}
         if meets_dead:
@@ -1367,8 +1371,9 @@ def failover_run(model, params, prompt, prompt2, want, plane):
         rec.update({
             "total_ms": (time.perf_counter() - t0) * 1e3,
             "phase_ms": {k: [t for lab, t in phases if lab == k] for k in ("put", "fetch")},
-            "flash_launches": fa.LAUNCHES - fa0, "merge_launches": kvmerge.LAUNCHES - mg0,
-            "runs_per_fetch": runs[a0:], "leases_after": _wait_no_leases(fs)})
+            "flash_launches": launched("flash_attention") - fa0,
+            "merge_launches": launched("merge") - mg0, "runs_per_fetch": runs[a0:],
+            "leases_after": _wait_no_leases(fs)})
         launches["flash_attention"] += rec["flash_launches"]
         launches["merge"] += rec["merge_launches"]
         by_step[label] = rec
@@ -1410,9 +1415,9 @@ def failover_run(model, params, prompt, prompt2, want, plane):
         del prefilled[:]
 
         # the prefill initiator dies mid-put of a second prompt's cache
-        fa0 = fa.LAUNCHES
+        fa0 = launched("flash_attention")
         _, cache2, _ = model.apply(params, {"tokens": prompt2}, mode="prefill", max_len=MAX_LEN)
-        orphan_flash = fa.LAUNCHES - fa0
+        orphan_flash = launched("flash_attention") - fa0
         launches["flash_attention"] += orphan_flash
         check(orphan_flash == cfg.num_layers, f"the second prompt's prefill launched flash "
                                               f"{orphan_flash} times")
@@ -1438,12 +1443,13 @@ def failover_run(model, params, prompt, prompt2, want, plane):
         check(store2.contains(prompt) and not store2.contains(prompt2),
               "the standby's catalog is not the committed one")
         store2.fetch = timed.wrap("fetch", store2.fetch)
-        fa0, t0 = fa.LAUNCHES, time.perf_counter()
+        fa0, t0 = launched("flash_attention"), time.perf_counter()
         toks = generate(model, params, prompt, steps=STEPS, max_len=MAX_LEN, kv_store=store2)
         torch.cuda.synchronize()
         standby = {"total_ms": (time.perf_counter() - t0) * 1e3,
                    "phase_ms": {"fetch": [t for _, t in timed.take()]},
-                   "flash_launches": fa.LAUNCHES - fa0, "fetches": store2.stats.fetches,
+                   "flash_launches": launched("flash_attention") - fa0,
+                   "fetches": store2.stats.fetches,
                    "leases_after": len(fs2._leases)}
         launches["flash_attention"] += standby["flash_launches"]
         check(torch.equal(toks.cpu(), want), "the standby's tokens differ from the main phase's")
@@ -1494,42 +1500,53 @@ def _cache_bit_equal(a, b) -> bool:
     return all(tree_leaves(same))
 
 
+def prefill_flash_calls(cfg, S: int, batch: int = 1) -> dict:
+    """{(q shape, softcap, causal): flash launches} of one forward-only
+    prefill of ``batch`` × S tokens: one an attention layer where
+    ``layers.attention_path`` answers "kernel", asked for the decoder's
+    causal self-attention over S and for an encoder–decoder's encoder, non-
+    causal over its frames in train mode (as JAX runs it in a prefill)."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import n_periods, period_layout
+
+    attn = sum(kind == "attn" for kind, _ in period_layout(cfg))
+    stacks = [("prefill", True, S, n_periods(cfg))]
+    if cfg.encoder_decoder:
+        stacks.append(("train", False, cfg.frontend_seq, n_periods(cfg, cfg.num_encoder_layers)))
+    calls = {}
+    for mode, causal, seq, periods in stacks:
+        path = layers.attention_path(mode, causal=causal, cross=False, seq=seq,
+                                     head_dim=cfg.head_dim, dtype=cfg.compute_dtype,
+                                     records=False)
+        if path == "kernel" and periods * attn:
+            key = ((batch, seq, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim),
+                   cfg.attn_logit_softcap, causal)
+            calls[key] = periods * attn
+    return calls
+
+
 def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
     """One arch at ``cfg``: one untimed prefill at the runs' shapes (its
     time is ``first_prefill_ms``, so that the runs' prefill times leave
     the first call's out), then in memory, and with ``store`` cold and
     warm; tokens in range and equal across the runs, the prefill's
     last-position and every decode step's logits finite, flash once per
-    attention layer a prefill where ``layers.prefill_takes_flash`` says the
-    decoder's prompt takes it (a vision model's frontend before it), causal
-    at the shape of its attention, and for an encoder–decoder also
-    non-causal over the encoder's frames where they pass
-    ``layers.FLASH_THRESHOLD``;
+    attention layer a prefill at the shapes ``prefill_flash_calls`` names
+    (the decoder's prompt, a vision model's frontend before it; an
+    encoder–decoder's frames);
     every fetched cache the prefill's bit for bit, the merge once a fetch
     that arrived in more than one run. ``extra`` joins the prefill's batch
     (a vision or audio model's frontend). Returns the record."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import kvmerge
     from repro_torch.models import layers
-    from repro_torch.models.transformer import n_periods, period_layout
     from repro_torch.serve import generate
 
     S = (cfg.frontend_seq if cfg.frontend == "vision" else 0) + prompt.shape[1]
     max_len = S + STEPS
-    attn_kinds = sum(kind == "attn" for kind, _ in period_layout(cfg))
-    heads = (cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim)
-    want_calls = {}  # (q shape, softcap, causal) -> launches a prefill
-    if layers.prefill_takes_flash(S, cfg.head_dim, cfg.compute_dtype):
-        want_calls[((BATCH, S) + heads, cfg.attn_logit_softcap, True)] = (
-            n_periods(cfg) * attn_kinds)
-    if cfg.encoder_decoder and cfg.frontend_seq > layers.FLASH_THRESHOLD:
-        want_calls[((BATCH, cfg.frontend_seq) + heads, cfg.attn_logit_softcap, False)] = (
-            n_periods(cfg, cfg.num_encoder_layers) * attn_kinds)
-    want_calls = {key: n for key, n in want_calls.items() if n}
+    want_calls = prefill_flash_calls(cfg, S, BATCH)
     flash_per_prefill = sum(want_calls.values())
-    fa0 = fa.LAUNCHES
+    fa0 = launched("flash_attention")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1537,7 +1554,7 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
                     max_len=max_len)
         torch.cuda.synchronize()
     first_prefill_ms = (time.perf_counter() - t0) * 1e3
-    warmup_flash = fa.LAUNCHES - fa0
+    warmup_flash = launched("flash_attention") - fa0
     check(warmup_flash == flash_per_prefill,
           f"{cfg.name} first prefill: flash launched {warmup_flash} times, "
           f"want {flash_per_prefill}")
@@ -1575,7 +1592,7 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
     labels = ["in_memory"] + (["cold", "warm"] if store is not None else [])
     try:
         for label in labels:
-            fa0, mg0 = fa.LAUNCHES, kvmerge.LAUNCHES
+            fa0, mg0 = launched("flash_attention"), launched("merge")
             r0, f0 = (store.stats.merge_runs, store.stats.fetches) if store else (0, 0)
             t0 = time.perf_counter()
             toks = generate(model, params, prompt, steps=STEPS, max_len=max_len,
@@ -1590,8 +1607,8 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
                    "put_ms": ms["put"], "fetch_ms": ms["fetch"], "decode_ms": ms["decode"],
                    "decode_steps": n_dec,
                    "decode_tok_per_s": BATCH * n_dec / (ms["decode"] / 1e3),
-                   "flash_launches": fa.LAUNCHES - fa0,
-                   "merge_launches": kvmerge.LAUNCHES - mg0, "tokens": toks.cpu()}
+                   "flash_launches": launched("flash_attention") - fa0,
+                   "merge_launches": launched("merge") - mg0, "tokens": toks.cpu()}
             if store is not None:
                 rec["fetches"] = store.stats.fetches - f0
                 rec["merge_runs"] = store.stats.merge_runs - r0
@@ -1807,7 +1824,6 @@ def _mamba_full_width():
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ssd as kssd
     from repro_torch.models import ssm
     from repro_torch.models.config import get_config
     from repro_torch.models.schema import init_tree
@@ -1830,7 +1846,7 @@ def _mamba_full_width():
                                  ("bfloat16_plain", torch.bfloat16, False)):
             c = cfg.with_(compute_dtype=dt)
             torch.cuda.synchronize()
-            calls = kssd.CALLS
+            calls = launched("ssd")
             if not kernel:
                 ops.ssd_takes = lambda *a: False
             try:
@@ -1840,7 +1856,7 @@ def _mamba_full_width():
                 t1 = time.perf_counter()
             finally:
                 ops.ssd_takes = takes
-            calls = kssd.CALLS - calls
+            calls = launched("ssd") - calls
             ys = []
             for t in range(PROMPT, PROMPT + STEPS):
                 y, cache = ssm.apply_mamba(params, c, x[:, t:t + 1], cache=cache,
@@ -1895,13 +1911,12 @@ def phase_families():
     ``tests/test_torch_families.py`` takes it)."""
     import torch
 
-    from repro_torch.kernels import ssd as kssd
     from repro_torch.models.config import get_config
     from repro_torch.models.model import build_model
     from repro_torch.train import optim
 
     out = {}
-    ssd_calls = kssd.CALLS
+    ssd_calls = launched("ssd")
     phi = get_config("phi-3-vision-4.2b")
     out["phi-3-vision-4.2b"] = _family_arch("phi-3-vision-4.2b", phi, frontend=True,
                                             n_params=FAMILIES["phi-3-vision-4.2b"])
@@ -1936,7 +1951,7 @@ def phase_families():
         emit("family_train", **trains[name])
     launches = {k: sum(r["launches"][k] for r in out.values())
                 for k in ("flash_attention", "merge")}
-    launches["ssd_calls"] = kssd.CALLS - ssd_calls
+    launches["ssd_calls"] = launched("ssd") - ssd_calls
     emit("families", batch=BATCH, prompt=PROMPT, steps=STEPS, launches=launches,
          n_params={k: v["n_params"] for k, v in out.items()},
          prefill_ms={k: v["runs"]["in_memory"]["prefill_ms"] for k, v in out.items()},
@@ -2172,9 +2187,6 @@ def phase_prep():
     from repro_torch.core.lsm import DBConfig, OffloadDB
     from repro_torch.data import OffloadPrep, PrepPipeline
     from repro_torch.data.preprocess import preprocess_image
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import kvmerge
-    from repro_torch.kernels import preprocess as kpp
 
     def new_prep(fs, off):
         return OffloadPrep(fs, off, out_size=PREP_OUT, offload_ratio=1 / 3)
@@ -2209,15 +2221,14 @@ def phase_prep():
     # the path, uninterrupted, with every count at 0 just before it
     pipe = new_pipe(prep, paths)
     times = _PrepTimes(prep)
-    fa.LAUNCHES = kvmerge.LAUNCHES = kpp.LAUNCHES = 0
+    base = {k: launched(k) for k in ("preprocess", "flash_attention", "merge")}
     t0 = time.perf_counter()
     got, arrivals = [], []
     for x in pipe:
         got.append(x)
         arrivals.append((time.perf_counter() - t0) * 1e3)
     wall_s = time.perf_counter() - t0
-    launches = {"preprocess": kpp.LAUNCHES, "flash_attention": fa.LAUNCHES,
-                "merge": kvmerge.LAUNCHES}
+    launches = {k: launched(k) - n for k, n in base.items()}
     stats = dict(prep.stats)
 
     check(len(got) == n_batches, f"the pipeline delivered {len(got)} of {n_batches} batches")
@@ -2339,7 +2350,6 @@ def phase_pushdown():
     from repro_torch.core import pushdown as P
     from repro_torch.core.lsm import DBConfig, OffloadDB
     from repro_torch.core.lsm import compaction as C
-    from repro_torch.kernels import kvmerge
 
     fs = OffloadFS(BlockDevice(num_blocks=1 << 17), node="init0", shards=4)
     fabric = RpcFabric()
@@ -2371,14 +2381,14 @@ def phase_pushdown():
     t0 = time.perf_counter()
     rows_local = db.scan(program=prog, pushdown=False)
     local_s = time.perf_counter() - t0
-    kvmerge.LAUNCHES = 0
+    m0 = launched("merge")
     fabric.drain()
     b0 = fabric.total_bytes()
     with _MergeRecord() as scan_merges:
         t0 = time.perf_counter()
         rows_push = db.scan(program=prog, pushdown=True)
         push_s = time.perf_counter() - t0
-    launches = kvmerge.LAUNCHES
+    launches = launched("merge") - m0
     fabric.drain()
     wire = fabric.total_bytes() - b0
     check(rows_push == rows_local, f"pushdown rows ({len(rows_push)}) differ from the "
@@ -2450,7 +2460,6 @@ def train_card_vs_cpu(cfg, seq: int, opt, lr: float, extra=None) -> dict:
     import torch
 
     from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.model import build_model
     from repro_torch.train.step import init_state, make_train_step
     from repro_torch.tree import tree_flatten_with_path, tree_map
@@ -2463,11 +2472,11 @@ def train_card_vs_cpu(cfg, seq: int, opt, lr: float, extra=None) -> dict:
     states, metrics, launches = {}, {}, {}
     for dev in ("cuda", "cpu"):
         state = init_state(model, opt, params=tree_map(lambda t: t.to(dev, copy=True), params))
-        f0 = fa.LAUNCHES
+        f0 = launched("flash_attention")
         with deterministic():
             states[dev], m = step(state, _batch_on(b, dev))
         metrics[dev] = {k: float(v) for k, v in m.items()}
-        launches[dev] = fa.LAUNCHES - f0
+        launches[dev] = launched("flash_attention") - f0
     torch.cuda.synchronize()
     g, c = metrics["cuda"], metrics["cpu"]
     check(set(g) == set(c), f"{cfg.name}: metrics {sorted(g)} vs {sorted(c)}")
@@ -2575,9 +2584,6 @@ def phase_train_e2e():
     card) is held against the host numpy golden, bit for bit."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import kvmerge
-    from repro_torch.kernels import preprocess as kpp
     from repro_torch.train import e2e
 
     def quiet(*_):
@@ -2586,12 +2592,11 @@ def phase_train_e2e():
     kw = dict(steps=E2E_STEPS, ingest="prep", device="cuda", log=quiet)
     with deterministic():
         with _PrepBatchRecord() as record:
-            fa.LAUNCHES = kvmerge.LAUNCHES = kpp.LAUNCHES = 0
+            base = {k: launched(k) for k in ("preprocess", "flash_attention", "merge")}
             t0 = time.perf_counter()
             crash = e2e.run(ckpt_every=E2E_CKPT_EVERY, kill_at=E2E_KILL_AT, **kw)
             crash_s = time.perf_counter() - t0
-        launches = {"preprocess": kpp.LAUNCHES, "flash_attention": fa.LAUNCHES,
-                    "merge": kvmerge.LAUNCHES}
+        launches = {k: launched(k) - n for k, n in base.items()}
         t0 = time.perf_counter()
         whole = e2e.run(ckpt_every=0, kill_at=E2E_STEPS, **kw)
         whole_s = time.perf_counter() - t0
@@ -2646,7 +2651,6 @@ def phase_train():
     import torch
 
     from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.config import get_config
     from repro_torch.models.model import build_model
     from repro_torch.train import optim
@@ -2661,7 +2665,7 @@ def phase_train():
     batch = _batch_on(TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ).next_batch(),
                       "cuda")
     step = make_train_step(model, opt)
-    f0 = fa.LAUNCHES
+    f0 = launched("flash_attention")
     losses, norms, ms = [], [], []
     with deterministic():
         for _ in range(TRAIN_STEPS):
@@ -2680,7 +2684,7 @@ def phase_train():
         torch.cuda.synchronize()
         mb2_ms = (time.perf_counter() - t0) * 1e3
     mb2_loss = float(m2["loss"])
-    flash = fa.LAUNCHES - f0
+    flash = launched("flash_attention") - f0
     check(all(math.isfinite(x) for x in losses + norms + [after, mb2_loss]),
           f"non-finite loss or grad_norm: {losses} {norms} {after} {mb2_loss}")
     # the schedule's warmup starts at lr 0 (as JAX's): step 1 moves nothing,
@@ -2751,21 +2755,6 @@ def _dist_tokens(abstract, vocab, seed):
     return {k: make(v).cuda() for k, v in abstract.items()}
 
 
-def _flash_per_prefill(cfg, S: int) -> int:
-    """Flash launches of one prefill of S tokens: one an attention layer
-    where ``layers.prefill_takes_flash`` (an encoder's over frames past
-    ``layers.FLASH_THRESHOLD`` too), as ``arch_run`` counts them."""
-    from repro_torch.models import layers
-    from repro_torch.models.transformer import n_periods, period_layout
-
-    attn = sum(kind == "attn" for kind, _ in period_layout(cfg))
-    n = (n_periods(cfg) * attn
-         if layers.prefill_takes_flash(S, cfg.head_dim, cfg.compute_dtype) else 0)
-    if cfg.encoder_decoder and cfg.frontend_seq > layers.FLASH_THRESHOLD:
-        n += n_periods(cfg, cfg.num_encoder_layers) * attn
-    return n
-
-
 def _whole(t):
     """A DTensor on the 1x1 mesh as a plain tensor (its one shard), anything
     else as it is."""
@@ -2797,7 +2786,6 @@ def _dist_run(plan, args, compare, fn=None, before=None):
     given, runs untimed before every call on its arguments."""
     import statistics
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.sharding import use_rules
 
     fn = fn or plan.fn
@@ -2812,13 +2800,13 @@ def _dist_run(plan, args, compare, fn=None, before=None):
             before(a)
         return _timed(f, *a)
 
-    f0 = fa.LAUNCHES
+    f0 = launched("flash_attention")
     plain_args = args()
     want, plain_first, _ = call(fn, plain_args)
-    f1 = fa.LAUNCHES
+    f1 = launched("flash_attention")
     placed = plan.place(args())
     got, rules_first, _ = call(ruled, placed)
-    rec = {"flash_launches": [f1 - f0, fa.LAUNCHES - f1]}
+    rec = {"flash_launches": [f1 - f0, launched("flash_attention") - f1]}
     rec.update(compare(want, got))
     del want, got
     _free()
@@ -2912,7 +2900,7 @@ def _dist_serve(mesh, arch=DIST_ARCH, cuts=DIST_CUTS, prefill_seq=None):
 
     with torch.inference_mode():
         rec = _dist_run(plan, lambda: (params, batch), compare_prefill)
-    flash = _flash_per_prefill(plan.cfg, plan.cell.seq_len)
+    flash = sum(prefill_flash_calls(plan.cfg, plan.cell.seq_len).values())
     check(rec["flash_launches"] == [flash, flash],
           f"prefill flash launches {rec['flash_launches']}, want {flash} in each run")
     rec.update(cell="prefill_32k", cut=pcut, batch=pb, seq=plan.cell.seq_len)
@@ -3005,12 +2993,11 @@ def phase_distribution():
     and the plan-only pass of every cell (child processes)."""
     import torch.distributed as dist
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_debug_mesh
 
     dry = dry_x = plan_only = None
     try:
-        fa.LAUNCHES = 0
+        f0 = launched("flash_attention")
         mesh = make_debug_mesh()
         cells = [_dist_train(mesh)] + _dist_serve(mesh)
         for rec in cells:
@@ -3021,7 +3008,7 @@ def phase_distribution():
         more += [(DIST_SEAMLESS, r) for r in _dist_serve(mesh, DIST_SEAMLESS, SEAMLESS_CUTS)]
         for arch, rec in more:
             emit("distribution_cell", model=arch, mesh="1x1", **rec)
-        launches = fa.LAUNCHES
+        launches = launched("flash_attention") - f0
         # the dry runs load the host's CPU, which the cells' dispatch under
         # the rules needs: they start once the timed cells are done
         dryrun = ("-m", "repro_torch.launch.dryrun")

@@ -28,10 +28,9 @@ name and power limit first.
 
 A build other than the kept one that refuses a case (an earlier design's
 limit, such as the old f32 kernel's B * H <= 65,535) is timed all the
-same, its refusal printed. A build whose flags define a ``PROBE_`` macro
-(``-DPROBE_NO_STORE``, ``-DPROBE_KV_ONCE``, ``-DPROBE_ALL_MASKED``: see the
-kernel's source) is a timing probe: it may compute a wrong answer by
-design, so its check is printed but does not keep it from being timed.
+same, its refusal printed. Each build runs through the port's own
+wrapper, its library put in the place of the kept one
+(``build._libs["flash_attention"]``).
 """
 from __future__ import annotations
 
@@ -117,7 +116,7 @@ def emit(phase, **kw):
 
 def build_all(also):
     """Compile the kept source and every ``also`` build at once; returns
-    {label: .so} and the labels of the probe builds."""
+    {label: .so} of those that compiled."""
     from repro_torch.kernels import build
 
     out_dir = build.BUILD_DIR / "bench_flash"
@@ -127,8 +126,6 @@ def build_all(also):
         label, _, rest = spec.partition("=")
         path, _, flags = rest.partition(":")
         jobs[label] = (Path(path), [f for f in flags.split(",") if f])
-    probes = {label for label, (_, extra) in jobs.items()
-              if any(f.startswith("-DPROBE_") for f in extra)}
     procs = {}
     for label, (src, extra) in jobs.items():
         lib = out_dir / f"flash_{label}.so"
@@ -146,16 +143,16 @@ def build_all(also):
              seconds=time.perf_counter() - t0, ptxas=keep)
         if proc.returncode == 0:
             libs[label] = str(lib)
-    return libs, probes
+    return libs
 
 
-def _use(lib_path):
-    import ctypes
-
+def _use(lib):
+    """The flash wrapper, launching the kernel of the loaded library
+    ``lib`` from now on."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
 
-    fn = fa.bind(ctypes.CDLL(lib_path))
-    fa._fn = lambda: fn
+    build._libs["flash_attention"] = lib
     return fa
 
 
@@ -181,11 +178,13 @@ def _rows(cases, timed):
 
 
 def child_check(label, lib_path):
+    import ctypes
+
     import torch
 
     from repro_torch.kernels import ref
 
-    fa = _use(lib_path)
+    fa = _use(ctypes.CDLL(lib_path))
     results, ok_all, refused = {}, True, False
     rows = _rows((CASES, TIMED), (CASES_F32, TIMED_F32))
     for i, (dtype, (name, B, Sq, Sk, KV, G, D, causal, cap, *qscale)) in enumerate(rows):
@@ -209,15 +208,13 @@ def child_check(label, lib_path):
 
 
 def child_time(libs, iters):
-    import torch
-    import torch.nn.functional as F
-
     import ctypes
 
-    import chip_smoke
-    from repro_torch.kernels import flash_attention as fa
+    import torch.nn.functional as F
 
-    fns = {label: fa.bind(ctypes.CDLL(path)) for label, path in libs.items()}
+    import chip_smoke
+
+    loaded = {label: ctypes.CDLL(path) for label, path in libs.items()}
 
     shapes = [("bf16", row) for row in TIMED] + [("f32", row) for row in TIMED_F32]
     for dtype, (name, B, S, KV, G, D, causal, cap) in shapes:
@@ -228,7 +225,7 @@ def child_time(libs, iters):
         order = list(libs) + list(reversed(libs))
         times = {label: [] for label in libs}
         for label in order:
-            fa._fn = (lambda f: (lambda: f))(fns[label])
+            fa = _use(loaded[label])
             times[label].append(chip_smoke.time_ms(
                 lambda: fa.flash_attention(q, k, v, causal=causal, softcap=cap), iters))
         lib_ms = None
@@ -272,7 +269,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     emit("device", kind=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    libs, probes = build_all(args.also)
+    libs = build_all(args.also)
     passed, timed, refused = {}, {}, set()
     me = [sys.executable, str(Path(__file__).resolve())]
     for label, path in libs.items():
@@ -284,7 +281,7 @@ def main() -> int:
             continue
         if rc == 0:
             passed[label] = timed[label] = path
-        elif (rc == CHECK_FAILED and label in probes) or (rc == REFUSED and label != "kept"):
+        elif rc == REFUSED and label != "kept":
             timed[label] = path
             refused |= {label} if rc == REFUSED else set()
     if timed:
@@ -295,7 +292,7 @@ def main() -> int:
         except subprocess.TimeoutExpired:
             emit("time", error="timed out")
     every = len(libs) == 1 + len(args.also) and set(timed) == set(libs)
-    return 0 if every and set(passed) >= set(libs) - probes - refused else 1
+    return 0 if every and set(passed) >= set(libs) - refused else 1
 
 
 if __name__ == "__main__":

@@ -6,6 +6,9 @@ with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
 hash is that of the source, so an edited source never loads a stale
 library. Nothing here runs at import time: the package imports on
 machines without ``nvcc``.
+
+Every wrapper calls its entry points through ``launch``, the one place
+that passes the stream, checks the return and counts the call.
 """
 from __future__ import annotations
 
@@ -16,8 +19,11 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -27,6 +33,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # per-kernel build record: {"seconds", "ptxas"} (empty when loaded from disk)
 BUILD_LOG: Dict[str, dict] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+# successful calls of each C entry point, by its name, since the process
+# started (the count a run reads to show that its path reached a kernel);
+# a call of ``ssd_forward`` runs four kernels and counts once, a call of
+# any other entry runs one
+LAUNCHES: Counter = Counter()
 # the kernels a prefill may reach, built together at the first of them
 # (one nvcc each, in parallel), so that only a first run waits, and once
 PREFILL = ("flash_attention", "ssd")
@@ -89,3 +100,20 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
+
+
+def launch(lib: str, entry: str, argtypes: Sequence, device, *args) -> None:
+    """Call the C function ``entry`` of kernel ``lib`` (loaded, and built,
+    if need be; ``argtypes`` its signature, the stream last, set at the
+    first call) on ``device`` with ``args`` and that device's current
+    stream. Raises a RuntimeError naming the entry on a non-zero
+    ``cudaError``; counts the call in ``LAUNCHES`` where it succeeds."""
+    fn = getattr(load(lib), entry)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: kernel launch failed: cudaError {err}")
+    LAUNCHES[entry] += 1

@@ -216,19 +216,6 @@ struct Design<96> : Knobs<3, false> {};
 template <>
 struct Design<128> : Knobs<2, true, true> {};
 
-// Timing probes, defined only by -D flags of scripts/bench_flash.py's
-// --also builds (never in a build the port loads): they compute a wrong
-// or an unchanged answer at another cost, to attribute the time.
-#ifndef PROBE_NO_STORE  // the epilogue's global stores skipped
-#define PROBE_NO_STORE 0
-#endif
-#ifndef PROBE_KV_ONCE  // K/V loaded into the first STAGES stages only
-#define PROBE_KV_ONCE 0
-#endif
-#ifndef PROBE_ALL_MASKED  // the masked softmax body on every tile
-#define PROBE_ALL_MASKED 0
-#endif
-
 template <int D>
 struct HopperLayout {
   static constexpr int WG = Design<D>::WG;
@@ -650,12 +637,6 @@ __device__ __forceinline__ void produce(const CUtensorMap* qm, const CUtensorMap
       const int st = j % STAGES;
       const int ph = (j / STAGES) & 1;
       mbar_wait(br.k_empty + st, ph ^ 1);  // the first round finds the stage free
-      if (PROBE_KV_ONCE && j >= STAGES) {
-        mbar_arrive(br.k_full + st);
-        mbar_wait(br.v_empty + st, ph ^ 1);
-        mbar_arrive(br.v_full + st);
-        continue;
-      }
       mbar_expect_tx(br.k_full + st, HBK * D * sizeof(bf16));
 #pragma unroll
       for (int c = 0; c < LY::BOXES; ++c)
@@ -714,7 +695,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
     sm.mul = (CAP ? softcap : scale) * LOG2E;
     auto softmax = [&](int jj) {
       const int k0 = jj * HBK;
-      if (PROBE_ALL_MASKED || k0 + HBK > Sk || (causal && k0 + HBK - 1 > wrow0))
+      if (k0 + HBK > Sk || (causal && k0 + HBK - 1 > wrow0))
         sm.template tile<true>(s, corr, k0, row_a, t4, Sk, causal);
       else
         sm.template tile<false>(s, corr, k0, row_a, t4, Sk, causal);
@@ -859,7 +840,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
       }
       fence_async_smem();
       wg_sync<LY::WG>(w);
-      if (tid == 0 && !PROBE_NO_STORE) {
+      if (tid == 0) {
 #pragma unroll
         for (int c = 0; c < LY::BOXES; ++c)
           tma_store(om, ob + c * LY::O_BOX, c * LY::BOX_COLS, t.h, wrow0, t.b);
@@ -869,8 +850,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, Barriers br, bf16* 
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int row = row_a + 8 * rr;
-        // the probe keeps the stores in the code (so O stays live) but skips them
-        if (row >= Sq || (PROBE_NO_STORE && Sq > 0)) continue;
+        if (row >= Sq) continue;
         bf16* orow = o + t.b * os.b + (long long)row * os.s + t.h * os.h + 2 * t4;
 #pragma unroll
         for (int n8 = 0; n8 < D / 8; ++n8)

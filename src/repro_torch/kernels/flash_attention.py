@@ -35,10 +35,6 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 
-# kernel launches since the last reset (the count a run reads to show that
-# its path went through the kernel)
-LAUNCHES = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 96, 128)
 
@@ -49,20 +45,9 @@ def takes(head_dim: int, dtype: torch.dtype) -> bool:
     return head_dim in _HEAD_DIMS and dtype in _DTYPES
 
 
-def _fn():
-    return bind(build.load("flash_attention"))
-
-
-def bind(lib: ctypes.CDLL):
-    """``fa_forward`` of a loaded library, with its C signature set."""
-    fn = lib.fa_forward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+# fa_forward's C signature, the stream last
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _walk(t: torch.Tensor):
@@ -146,16 +131,10 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
     Sk = k.shape[1]
     out = torch.empty((B, Sq, KV, G, D), dtype=q.dtype, device=q.device)
     os_ = _strides("out", out)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    _DTYPES[q.dtype], B, KV * G, KV, Sq, Sk, D,
-                    *qs, *ks, *vs, *os_, float(scale), float(softcap),
-                    int(bool(causal)), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    build.launch("flash_attention", "fa_forward", _ARGTYPES, q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+                 B, KV * G, KV, Sq, Sk, D, *qs, *ks, *vs, *os_, float(scale),
+                 float(softcap), int(bool(causal)))
     return out
 
 

@@ -18,13 +18,10 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# launches of either merge kernel since the last reset (the count a run
-# reads to show that its path went through the kernel)
-LAUNCHES = 0
-
 _KEY_DTYPES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
 
 
+# each entry's C signature, the stream last
 _ARGTYPES = {
     "merge_sorted": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -33,14 +30,6 @@ _ARGTYPES = {
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p],
 }
-
-
-def _fn(name: str):
-    fn = getattr(build.load("merge"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def merge_sorted(a_keys, a_vals, b_keys, b_vals):
@@ -70,15 +59,9 @@ def merge_sorted(a_keys, a_vals, b_keys, b_vals):
     if na + nb == 0:
         return out_k, out_v
     ak, av, bk, bv = (t.contiguous() for t in (a_keys, a_vals, b_keys, b_vals))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("merge_sorted")(ak.data_ptr(), av.data_ptr(), na, bk.data_ptr(),
-                                  bv.data_ptr(), nb, out_k.data_ptr(), out_v.data_ptr(),
-                                  _KEY_DTYPES[a_keys.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"merge kernel launch failed: cudaError {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    build.launch("merge", "merge_sorted", _ARGTYPES["merge_sorted"], dev,
+                 ak.data_ptr(), av.data_ptr(), na, bk.data_ptr(), bv.data_ptr(), nb,
+                 out_k.data_ptr(), out_v.data_ptr(), _KEY_DTYPES[a_keys.dtype])
     return out_k, out_v
 
 
@@ -127,14 +110,8 @@ def merge_runs(keys, vals, offsets):
     if n == 0:
         return out_k, out_v
     k_in, v_in = keys.contiguous(), vals.contiguous()
-    with torch.cuda.device(dev):
-        off_dev = off.to(dev, non_blocking=True)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("merge_runs")(k_in.data_ptr(), v_in.data_ptr(), off_dev.data_ptr(),
-                                off.numel() - 1, n, out_k.data_ptr(), out_v.data_ptr(),
-                                _KEY_DTYPES[keys.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"merge_runs kernel launch failed: cudaError {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    off_dev = off.to(dev, non_blocking=True)
+    build.launch("merge", "merge_runs", _ARGTYPES["merge_runs"], dev,
+                 k_in.data_ptr(), v_in.data_ptr(), off_dev.data_ptr(), off.numel() - 1, n,
+                 out_k.data_ptr(), out_v.data_ptr(), _KEY_DTYPES[keys.dtype])
     return out_k, out_v

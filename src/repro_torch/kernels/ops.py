@@ -1,7 +1,11 @@
 """Public kernel entry points, with the signatures of ``src/repro/kernels/ops.py``.
 
-Each runs its Hopper kernel on CUDA tensors and its plain version
-(``ref.py``) on CPU tensors; nothing else chooses between the two.
+Each decides by device only: its plain version (``ref.py``) on CPU
+tensors, its Hopper kernel on CUDA tensors, or a raise where the kernel
+does not take the call. Whether a call comes here is the model's choice,
+in one place per kernel: ``models.layers.attention_path`` picks the
+attention path of each call (this op, the chunked twin or einsum), and
+``models.ssm.apply_mamba``, through ``ssd_takes``, picks the SSD scan's.
 
 ``ssd_scan`` replaces no TPU kernel: it is the Mamba-2 mixer's chunked
 scan with its D skip (``src/repro/models/ssm.py`` ``ssd_chunked``, plain

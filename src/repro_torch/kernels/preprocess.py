@@ -21,10 +21,6 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# launches of either preprocess kernel since the last reset (the count a run
-# reads to show that its path went through the kernel)
-LAUNCHES = 0
-
 _DTYPES = {torch.uint8: 0, torch.float32: 1}
 MAX_CHANNELS = 4  # mean and std travel to the kernel by value
 MAX_BATCH_OUT = 2048  # the batch kernel's output side (its taps in shared memory)
@@ -33,20 +29,13 @@ MAX_BATCH_IMAGES = 65535  # the batch kernel's grid.y
 # buffer, its height, width and channels, flip (0/1), its slot in the batch
 DESC_COLUMNS = ("offset", "h", "w", "C", "flip", "slot")
 
+# each entry's C signature, the stream last
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = {
     "preprocess_image": [_P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _P, _LL, _LL, _LL, _I, _I,
                          _P, _P, _P],
     "preprocess_batch": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
 }
-
-
-def _fn(name: str):
-    fn = getattr(build.load("preprocess"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _norm(vals, default, C: int, what: str) -> torch.Tensor:
@@ -87,16 +76,10 @@ def preprocess_image(img_chw, *, out_size=224, flip=False, mean=None, std=None, 
                                                   mean=mean_t, std=std_t))
     if dev.type != "cuda":
         raise ValueError(f"preprocess_image runs on cuda or cpu, not {dev}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("preprocess_image")(
-            img_chw.data_ptr(), _DTYPES[img_chw.dtype], C, h, w, *img_chw.stride(),
-            int(bool(flip)), out.data_ptr(), *out.stride(), out_size, out_size,
-            mean_t.data_ptr(), std_t.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"preprocess kernel launch failed: cudaError {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    build.launch("preprocess", "preprocess_image", _ARGTYPES["preprocess_image"], dev,
+                 img_chw.data_ptr(), _DTYPES[img_chw.dtype], C, h, w, *img_chw.stride(),
+                 int(bool(flip)), out.data_ptr(), *out.stride(), out_size, out_size,
+                 mean_t.data_ptr(), std_t.data_ptr())
     return out
 
 
@@ -181,14 +164,8 @@ def preprocess_batch(packed, desc, out, *, mean=None, std=None):
     if S > MAX_BATCH_OUT or desc.shape[0] > MAX_BATCH_IMAGES:
         raise ValueError(f"preprocess_batch takes at most {MAX_BATCH_IMAGES} images of side "
                          f"at most {MAX_BATCH_OUT}, got {desc.shape[0]} of {S}")
-    with torch.cuda.device(dev):
-        desc_dev = desc.to(dev, non_blocking=True)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("preprocess_batch")(packed.data_ptr(), desc_dev.data_ptr(), desc.shape[0],
-                                      out.data_ptr(), C, S, S, mean_t.data_ptr(),
-                                      std_t.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"preprocess_batch kernel launch failed: cudaError {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    desc_dev = desc.to(dev, non_blocking=True)
+    build.launch("preprocess", "preprocess_batch", _ARGTYPES["preprocess_batch"], dev,
+                 packed.data_ptr(), desc_dev.data_ptr(), desc.shape[0], out.data_ptr(), C, S,
+                 S, mean_t.data_ptr(), std_t.data_ptr())
     return out

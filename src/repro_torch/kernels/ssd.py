@@ -22,9 +22,6 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# calls that reached the kernel since the last reset (four launches each)
-CALLS = 0
-
 CHUNK = 256
 HEAD_DIM = 64
 STATES = (64, 128)
@@ -49,20 +46,9 @@ def properties(x, Bm, chunk: int, *others):
     return x.device.type, records, x.dtype, x.shape[-1], Bm.shape[-1], chunk, x.shape[1]
 
 
-def _fn():
-    return bind(build.load("ssd"))
-
-
-def bind(lib: ctypes.CDLL):
-    """``ssd_forward`` of a loaded library, with its C signature set."""
-    fn = lib.ssd_forward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
-                       + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
-                       + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
-                       + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+# ssd_forward's C signature, the stream last
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3
+             + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _rows(name: str, t: torch.Tensor):
@@ -110,15 +96,9 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int, h0=None):
     cb = torch.empty((Bsz, nc, chunk, chunk), dtype=torch.float32, device=dev)
     states = torch.empty((Bsz, nc, H, N, P), dtype=torch.float32, device=dev)
     hs = torch.empty((Bsz, nc, H, 3, N, P), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(x.data_ptr(), *xs, Bm.data_ptr(), *bs, Cm.data_ptr(), *cs,
-                    dt.data_ptr(), A.data_ptr(), D.data_ptr(),
-                    h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-                    h_last.data_ptr(), cum.data_ptr(), cb.data_ptr(), states.data_ptr(),
-                    hs.data_ptr(), Bsz, S, H, N, stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
-    global CALLS
-    CALLS += 1
+    build.launch("ssd", "ssd_forward", _ARGTYPES, dev,
+                 x.data_ptr(), *xs, Bm.data_ptr(), *bs, Cm.data_ptr(), *cs, dt.data_ptr(),
+                 A.data_ptr(), D.data_ptr(), h0.data_ptr() if h0 is not None else None,
+                 y.data_ptr(), h_last.data_ptr(), cum.data_ptr(), cb.data_ptr(),
+                 states.data_ptr(), hs.data_ptr(), Bsz, S, H, N)
     return y, h_last

@@ -2,22 +2,15 @@
 LayerNorm, RoPE, GQA self-attention (causal or not; train/prefill/decode),
 decoder→encoder cross-attention, the swiglu and gelu MLPs.
 
-Self-attention has three paths:
+Attention has three paths, and ``attention_path`` alone chooses among
+them for a call:
   * the Hopper flash-attention kernel (``kernels.ops.flash_attention``),
-    which is forward only, for a prefill's self-attention at any length
-    where autograd does not record and the kernel takes the head dim
-    (64, 96, 128) and dtype (q, k, v all bf16 or all f32), and above
-    FLASH_THRESHOLD for every forward-only prefill and for the encoder's
-    non-causal attention, which JAX runs in train mode inside every
-    prefill;
-  * above FLASH_THRESHOLD, while autograd records, and for causal
-    attention in train mode, the chunked online-softmax twin
-    ``_flash_attention_qchunked`` (plain torch, each KV-block step
-    rematerialised), which is what the JAX model runs there;
-  * einsum attention (plain torch) otherwise: all decode (its ``kv_len``
-    mask over the cache), cross-attention, train mode up to the
-    threshold, and a prefill up to it at a head dim or dtype the kernel
-    does not take.
+    which is forward only;
+  * the chunked online-softmax twin ``_flash_attention_qchunked`` (plain
+    torch, each KV-block step rematerialised), which is what the JAX
+    model runs above FLASH_THRESHOLD;
+  * einsum attention (plain torch): all decode (its ``kv_len`` mask over
+    the cache), cross-attention, and whatever the other two do not serve.
 Above the threshold the JAX package declares the chunked scan's FLOPs
 (``attention_scan_flops``); the port declares the same whichever path
 runs, and 0 up to it, as JAX does.
@@ -307,13 +300,27 @@ def attention_scan_flops(B, Sq, Sk, H, D, causal: bool) -> float:
     return 4.0 * B * H * area * D
 
 
-def prefill_takes_flash(S: int, head_dim: int, dtype: torch.dtype) -> bool:
-    """Whether a prefill's self-attention over S tokens, forward only with
-    q, k and v all in ``dtype``, runs the flash kernel: past FLASH_THRESHOLD
-    always, and at any length where the kernel takes the head dim and dtype
-    (the einsum path writes B·H·S² f32 logits and reads them back several
-    times)."""
-    return S > FLASH_THRESHOLD or ops.flash_takes(head_dim, dtype)
+def attention_path(mode: str, *, causal: bool, cross: bool, seq: int, head_dim: int,
+                   dtype: torch.dtype, records: bool) -> str:
+    """Which attention runs a call of ``apply_attention``: "kernel" (the
+    forward-only flash kernel), "twin" (``_flash_attention_qchunked``) or
+    "einsum". ``seq`` is q's length, ``dtype`` that of q, k and v, and
+    ``records`` whether autograd records through them.
+
+    Decode and cross-attention take the einsum path. Past FLASH_THRESHOLD,
+    self-attention takes the twin where autograd records or in a causal
+    train-mode forward, and the kernel otherwise: a prefill's, and the
+    encoder's non-causal one, which JAX runs in train mode inside every
+    prefill. Up to it a forward-only prefill takes the kernel where it
+    takes the head dim and dtype (the einsum path writes B·H·S² f32 logits
+    and reads them back several times), and everything else the einsum."""
+    if mode == "decode" or cross:
+        return "einsum"
+    if seq > FLASH_THRESHOLD:
+        return "twin" if records or (mode == "train" and causal) else "kernel"
+    if mode == "prefill" and not records and ops.flash_takes(head_dim, dtype):
+        return "kernel"
+    return "einsum"
 
 
 def apply_attention(
@@ -353,6 +360,10 @@ def apply_attention(
     k = lac(k, "batch", None, heads[0], None)
     v = lac(v, "batch", None, heads[0], None)
 
+    records = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                           or v.requires_grad)
+    path = attention_path(mode, causal=causal, cross=kv_src is not None, seq=S,
+                          head_dim=q.shape[-1], dtype=q.dtype, records=records)
     new_cache = None
     scan_flops = 0.0
     if mode == "decode":
@@ -382,29 +393,16 @@ def apply_attention(
                     "v": vc,
                     "len": torch.full((B,), S, dtype=torch.int32, device=x.device),
                 }
-        records = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                               or v.requires_grad)
-        long = S > FLASH_THRESHOLD and kv_src is None
-        short_kernel = (mode == "prefill" and kv_src is None and not records
-                        and q.dtype == k.dtype == v.dtype
-                        and prefill_takes_flash(S, q.shape[-1], q.dtype))
         with span("attention.core"):
-            if long and (records or (mode == "train" and causal)):
-                # the twin where autograd records, and for a decoder's
-                # train-mode forward (causal) even where it does not
-                out = _per_shard(_flash_attention_qchunked, q, k, v, causal=causal,
-                                 softcap=cfg.attn_logit_softcap, scale=cfg.attn_scale)
-            elif long or short_kernel:
-                # past the threshold also non-causal self-attention, the
-                # encoder's, which JAX runs in train mode inside every
-                # prefill: there the forward-only kernel serves it
+            if path == "kernel":
                 out = ops.flash_attention(q, k, v, causal=causal,
                                           softcap=cfg.attn_logit_softcap,
                                           scale=cfg.attn_scale)
             else:
-                out = _per_shard(_einsum_attention, q, k, v, causal=causal,
+                fn = _flash_attention_qchunked if path == "twin" else _einsum_attention
+                out = _per_shard(fn, q, k, v, causal=causal,
                                  softcap=cfg.attn_logit_softcap, scale=cfg.attn_scale)
-            if long:
+            if kv_src is None and S > FLASH_THRESHOLD:
                 scan_flops = attention_scan_flops(B, S, S, cfg.num_heads, cfg.head_dim, causal)
     with span("attention.out"):
         out = lac(out, "batch", None, "kv_heads", "q_per_kv", None)

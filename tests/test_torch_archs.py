@@ -20,7 +20,7 @@ from repro.models.config import get_config as jax_config
 from repro.models.model import build_model as jax_model
 from repro.train import optim as jopt
 from repro.train import step as jstep
-from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import build
 from repro_torch.models import layers as L
 from repro_torch.models.bridge import from_jax_params, from_jax_state
 from repro_torch.models.config import get_config
@@ -201,7 +201,7 @@ def test_prefill_past_flash_threshold_matches_jax(arch, full_heads):
     S = L.FLASH_THRESHOLD + 256
     jm, jp, tm, tp = _pair(arch, full_heads)
     toks = _tokens(1, S, seed=3)
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     calls = []
     real = L.ops.flash_attention
 
@@ -219,6 +219,6 @@ def test_prefill_past_flash_threshold_matches_jax(arch, full_heads):
     assert calls == [(1, S, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim)] * cfg.num_layers
     if full_heads:
         assert cfg.q_per_kv == jax_config(arch).num_heads // jax_config(arch).num_kv_heads
-    assert fa.LAUNCHES == before
+    assert build.LAUNCHES["fa_forward"] == before
     jl, _, _ = _japply(jm, jp, toks, mode="prefill", max_len=S + 4)
     _close(tl, jl)

@@ -30,7 +30,7 @@ import torch
 from repro.models import layers as JL
 from repro.models.config import get_config as jax_config
 from repro.models.model import build_model as jax_model
-from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import build
 from repro_torch.models import layers as L
 from repro_torch.models.bridge import from_jax_params
 from repro_torch.models.config import get_config
@@ -200,7 +200,7 @@ def test_encoder_attention_launches_flash_only_when_no_gradient_is_recorded():
         twin.append((tuple(q.shape), kw["causal"]))
         return real_twin(q, k, v, **kw)
 
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     L.ops.flash_attention, L._flash_attention_qchunked = flash_spy, twin_spy
     try:
         with torch.inference_mode():
@@ -215,7 +215,7 @@ def test_encoder_attention_launches_flash_only_when_no_gradient_is_recorded():
         assert flash == [] and twin == [(shape, False)] * tc.num_encoder_layers
     finally:
         L.ops.flash_attention, L._flash_attention_qchunked = real_flash, real_twin
-    assert fa.LAUNCHES == before
+    assert build.LAUNCHES["fa_forward"] == before
     jl, _, _ = jax.jit(lambda p, b: jm.apply(p, b, mode="prefill", max_len=24))(
         jp, {"tokens": jnp.asarray(b["tokens"][:, :16]), "frontend": jnp.asarray(b["frontend"])})
     _close(tl, jl)

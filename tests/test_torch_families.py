@@ -37,7 +37,7 @@ from repro.serve.kvstore import KvCacheStore as JKvCacheStore
 from repro.train import optim as jopt
 from repro.train import step as jstep
 from repro_torch.core import BlockDevice, OffloadFS
-from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import build
 from repro_torch.models import layers as L
 from repro_torch.models.bridge import from_jax_cache, from_jax_params, from_jax_state
 from repro_torch.models.config import get_config
@@ -366,7 +366,7 @@ def test_prefill_past_flash_threshold_matches_jax(arch):
         calls.append((tuple(a[0].shape), kw.get("softcap")))
         return real(*a, **kw)
 
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     L.ops.flash_attention = spy
     try:
         tl, _, _ = tm.apply(tp, _tb(b), mode="prefill", max_len=S + tcfg.frontend_seq + 4)
@@ -375,7 +375,7 @@ def test_prefill_past_flash_threshold_matches_jax(arch):
     S_all = S + tcfg.frontend_seq
     shape = (1, S_all, tcfg.num_kv_heads, tcfg.q_per_kv, tcfg.head_dim)
     assert calls == [(shape, tcfg.attn_logit_softcap)] * tcfg.num_layers
-    assert fa.LAUNCHES == before
+    assert build.LAUNCHES["fa_forward"] == before
     jl, _, _ = jax.jit(lambda p, b: jm.apply(p, b, mode="prefill", max_len=S_all + 4))(
         jp, _jb(b))
     _close(tl, jl)

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import kvmerge, ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import ssd as kssd
 
 try:  # the JAX reference; the machine with the card has no jax
@@ -228,15 +228,16 @@ def test_flash_1xtf32_misses_f32_tolerance():
 
 def test_flash_wrapper_checks_and_strides():
     q, k, v = (torch.from_numpy(a) for a in _qkv(2, 64, 64, 2, 2, 64, seed=1))
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     ops.flash_attention(q, k, v)
-    assert fa.LAUNCHES == before  # the plain version is no kernel launch
+    assert build.LAUNCHES["fa_forward"] == before  # the plain version is no kernel launch
     with pytest.raises(ValueError):
         ops.flash_attention(q, k[:, :, :1], v)
     # meta tensors take the op's registered abstract implementation (the
     # dry run traces on meta shards): the output's shape, no launch
     out = ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
-    assert out.device.type == "meta" and out.shape == q.shape and fa.LAUNCHES == before
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert build.LAUNCHES["fa_forward"] == before
     # the model layout walks in place; a layout the kernel cannot walk is
     # refused on either device, never copied behind the caller's back
     assert fa._walk(q) == (64 * 4 * 64, 4 * 64, 64)
@@ -357,9 +358,9 @@ def test_merge_wrapper_checks():
         ops.merge_sorted(k, k.to(torch.int64), k, k)
     with pytest.raises(ValueError):
         ops.merge_sorted(k.to(torch.int64), k, k.to(torch.int64), k)
-    before = kvmerge.LAUNCHES
+    before = build.LAUNCHES["merge_sorted"]
     mk, mv = ops.merge_sorted(k, k, k[:0], k[:0])
-    assert kvmerge.LAUNCHES == before and torch.equal(mk, k)
+    assert build.LAUNCHES["merge_sorted"] == before and torch.equal(mk, k)
     u = torch.tensor([1, 3, 2**32 - 2], dtype=torch.uint32)
     mk, _ = ops.merge_sorted(u, k[:3], u, k[:3])
     assert mk.to(torch.int64).tolist() == [1, 1, 3, 3, 2**32 - 2, 2**32 - 2]
@@ -454,11 +455,11 @@ def test_merge_runs_wrapper_checks():
         ops.merge_runs(k, k.to(torch.int16), [0, 6])
     with pytest.raises(ValueError):
         ops.merge_runs(k, k[:5], [0, 6])
-    before = kvmerge.LAUNCHES
+    before = build.LAUNCHES["merge_runs"]
     mk, mv = ops.merge_runs(k[:0], k[:0], [0, 0, 0])
-    assert mk.numel() == 0 and kvmerge.LAUNCHES == before
+    assert mk.numel() == 0 and build.LAUNCHES["merge_runs"] == before
     mk, mv = ops.merge_runs(k, k, torch.tensor([0, 3, 6]))
-    assert mk.tolist() == [0, 1, 2, 3, 4, 5] and kvmerge.LAUNCHES == before
+    assert mk.tolist() == [0, 1, 2, 3, 4, 5] and build.LAUNCHES["merge_runs"] == before
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -574,10 +575,10 @@ def test_flash_kernel_matches_plain_on_card(S, KV, G, D, dtype, causal, softcap)
     _need_cuda()
     q, k, v = (torch.from_numpy(a).to("cuda", dtype)
                for a in _qkv(2, S, S, KV, G, D, seed=S))
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=causal, softcap=softcap)
-    assert fa.LAUNCHES == before + 1
+    assert build.LAUNCHES["fa_forward"] == before + 1
     assert ok, errs
 
 
@@ -614,10 +615,10 @@ def test_flash_bf16_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap, qsca
     _need_cuda()
     q, k, v = _qkv(2, Sq, Sk, KV, G, D, seed=Sq + Sk + G)
     q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (q * qscale, k, v))
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=causal, softcap=softcap)
-    assert fa.LAUNCHES == before + 1
+    assert build.LAUNCHES["fa_forward"] == before + 1
     assert ok, errs
 
 
@@ -637,10 +638,10 @@ def test_flash_f32_kernel_edges_on_card(Sq, Sk, KV, G, D, causal, softcap, qscal
     _need_cuda()
     q, k, v = _qkv(2, Sq, Sk, KV, G, D, seed=Sq + Sk + G)
     q, k, v = (torch.from_numpy(a).to("cuda") for a in (q * qscale, k, v))
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=causal, softcap=softcap)
-    assert fa.LAUNCHES == before + 1
+    assert build.LAUNCHES["fa_forward"] == before + 1
     assert ok, errs
 
 
@@ -661,10 +662,10 @@ def test_flash_kernel_at_short_batch_shapes_on_card(S, KV, G):
     q = torch.randn((B, S, KV, G, D), generator=g, device="cuda").bfloat16()
     k = torch.randn((B, S, KV, D), generator=g, device="cuda").bfloat16()
     v = torch.randn((B, S, KV, D), generator=g, device="cuda").bfloat16()
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     got = ops.flash_attention(q, k, v, causal=True)
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=True)
-    assert fa.LAUNCHES == before + 1
+    assert build.LAUNCHES["fa_forward"] == before + 1
     assert ok, errs
 
 
@@ -681,9 +682,9 @@ def test_flash_kernel_at_attention_scale_on_card(S):
     q = torch.randn((1, S, 8, 4, 128), generator=g, device="cuda").bfloat16()
     k = torch.randn((1, S, 8, 128), generator=g, device="cuda").bfloat16()
     v = torch.randn((1, S, 8, 128), generator=g, device="cuda").bfloat16()
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     got = ops.flash_attention(q, k, v, causal=True, scale=1 / 128)
-    assert fa.LAUNCHES == before + 1
+    assert build.LAUNCHES["fa_forward"] == before + 1
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=True, scale=1 / 128)
     assert ok, errs
     want = L._einsum_attention(q.float(), k.float(), v.float(), causal=True, softcap=0.0,
@@ -727,10 +728,10 @@ def test_flash_kernel_family_shapes_on_card(S, KV, G, D, dtype, softcap):
     _need_cuda()
     q, k, v = (torch.from_numpy(a).to("cuda", dtype)
                for a in _qkv(2, S, S, KV, G, D, seed=S + G + D))
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     got = ops.flash_attention(q, k, v, causal=True, softcap=softcap)
     errs, ok = ref.flash_attention_check(got, q, k, v, causal=True, softcap=softcap)
-    assert fa.LAUNCHES == before + 1
+    assert build.LAUNCHES["fa_forward"] == before + 1
     assert ok, errs
 
 
@@ -773,11 +774,11 @@ def test_merge_kernel_matches_plain_on_card(na, nb, dtype):
     b = torch.from_numpy(np.sort(rng.integers(0, 1000, nb))).to("cuda", dtype)
     av = torch.arange(na, dtype=torch.int32, device="cuda")
     bv = torch.arange(na, na + nb, dtype=torch.int32, device="cuda")
-    before = kvmerge.LAUNCHES
+    before = build.LAUNCHES["merge_sorted"]
     got = ops.merge_sorted(a, av, b, bv)
     want = ref.merge_sorted_ref(a, av, b, bv)
     torch.cuda.synchronize()
-    assert kvmerge.LAUNCHES == before + 1
+    assert build.LAUNCHES["merge_sorted"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -810,11 +811,11 @@ def test_merge_runs_kernel_matches_plain_on_card(case):
     else:
         keys, vals, off = _runs([4097], rng, 100)
     k, v = torch.from_numpy(keys).cuda(), torch.from_numpy(vals).cuda()
-    before = kvmerge.LAUNCHES
+    before = build.LAUNCHES["merge_runs"]
     got = ops.merge_runs(k, v, off)
     want = ref.merge_runs_ref(k, v, torch.as_tensor(off))
     torch.cuda.synchronize()
-    assert kvmerge.LAUNCHES == before + 1
+    assert build.LAUNCHES["merge_runs"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     order = np.argsort(keys.astype(np.float64), kind="stable")
     np.testing.assert_array_equal(got[1].cpu().numpy(), vals[order])
@@ -846,9 +847,9 @@ def test_ssd_kernel_matches_the_f32_path_on_card(H, N, S, with_h0):
     _need_cuda()
     ops_in = _ssd_operands(H, N, 1, S, with_h0, seed=S + N + with_h0)
     x, dt, A, Bm, Cm, D, h0 = ops_in
-    before = kssd.CALLS
+    before = build.LAUNCHES["ssd_forward"]
     y, h = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, h0=h0)
-    assert kssd.CALLS == before + 1
+    assert build.LAUNCHES["ssd_forward"] == before + 1
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
     errs, ok = ref.ssd_scan_check(y, h, *ops_in[:6], chunk=256, h0=h0)
     assert ok, errs

@@ -13,7 +13,7 @@ import torch
 
 from repro.models.config import get_config as jax_config
 from repro.models.model import build_model as jax_model
-from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import build
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.models.accounting import count_scan_flops
@@ -133,7 +133,7 @@ def test_prefill_past_flash_threshold_matches_jax():
     S = L.FLASH_THRESHOLD + 256
     jm, jp, tm, tp = _pair()
     toks = _tokens(1, S, seed=3)
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     calls = []
     real = L.ops.flash_attention
 
@@ -147,7 +147,7 @@ def test_prefill_past_flash_threshold_matches_jax():
                             max_len=S + 4)
     finally:
         L.ops.flash_attention = real
-    assert len(calls) == tm.cfg.num_layers and fa.LAUNCHES == before
+    assert len(calls) == tm.cfg.num_layers and build.LAUNCHES["fa_forward"] == before
     jl, _, _ = _japply(jm, jp, toks, mode="prefill", max_len=S + 4)
     _close(tl, jl)
 
@@ -167,8 +167,9 @@ def _rel(a, b):
 
 def _prefill(model, params, toks, *, kernel=True):
     """(logits, cache leaves, flash calls with their outputs, scan FLOPs) of
-    a forward-only prefill; ``kernel=False`` runs the einsum path instead."""
-    calls, real, takes = [], L.ops.flash_attention, L.ops.flash_takes
+    a forward-only prefill; ``kernel=False`` runs the einsum path instead,
+    as ``L.attention_path`` answers for every call."""
+    calls, real, path = [], L.ops.flash_attention, L.attention_path
 
     def spy(q, k, v, **kw):
         out = real(q, k, v, **kw)
@@ -178,13 +179,13 @@ def _prefill(model, params, toks, *, kernel=True):
     res = []
     L.ops.flash_attention = spy
     if not kernel:
-        L.ops.flash_takes = lambda *a: False
+        L.attention_path = lambda *a, **kw: "einsum"
     try:
         with torch.inference_mode():
             flops = count_scan_flops(lambda: res.append(model.apply(
                 params, {"tokens": toks}, mode="prefill", max_len=toks.shape[1] + 4)))
     finally:
-        L.ops.flash_attention, L.ops.flash_takes = real, takes
+        L.ops.flash_attention, L.attention_path = real, path
     logits, cache, _ = res[0]
     kv = [t for t in tree_leaves(cache) if t.is_floating_point()]
     return logits, kv, calls, flops
@@ -195,7 +196,7 @@ def _prefill(model, params, toks, *, kernel=True):
 def test_short_prefill_runs_the_flash_kernel(S, dtype):
     """A forward-only prefill at or below FLASH_THRESHOLD, at a head dim and
     dtype the kernel takes, calls ``ops.flash_attention`` once a layer (on
-    the CPU its plain version: ``LAUNCHES`` counts only the card's
+    the CPU its plain version: ``build.LAUNCHES`` counts only the card's
     launches), each call within ``ref.flash_attention_check``'s tolerance,
     and declares no scan FLOPs, as JAX's einsum path there. Logits and
     cached k/v against the einsum path: in f32 within the f32 tolerance; in
@@ -205,10 +206,10 @@ def test_short_prefill_runs_the_flash_kernel(S, dtype):
     call's bf16 tolerance."""
     model, params = _wide(dtype)
     toks = torch.from_numpy(_tokens(2, S, seed=5))
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     logits, kv, calls, flops = _prefill(model, params, toks)
     cfg = model.cfg
-    assert fa.LAUNCHES == before and flops == 0.0
+    assert build.LAUNCHES["fa_forward"] == before and flops == 0.0
     assert [(tuple(q.shape), kw) for q, _, _, _, kw in calls] == [
         ((2, S, cfg.num_kv_heads, cfg.q_per_kv, 128),
          {"causal": True, "softcap": 0.0, "scale": 1.0 / math.sqrt(128)})
@@ -255,7 +256,7 @@ def test_attention_outside_the_kernel_rule_stays_on_einsum(case):
         calls.append(tuple(a[0].shape))
         return real(*a, **kw)
 
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     L.ops.flash_attention = spy
     try:
         if case == "cross_attention":
@@ -282,7 +283,7 @@ def test_attention_outside_the_kernel_rule_stays_on_einsum(case):
                                         max_len=S + 4)
     finally:
         L.ops.flash_attention = real
-    assert calls == [] and fa.LAUNCHES == before
+    assert calls == [] and build.LAUNCHES["fa_forward"] == before
     assert bool(torch.isfinite(out.float()).all())
 
 

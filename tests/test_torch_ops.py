@@ -11,8 +11,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 
 
 def _inputs(B, S, KV, G, D, seed, dtype=torch.float32):
@@ -38,12 +37,12 @@ def _jax_ref(q, k, v, *, causal, softcap=0.0):
 def test_block_sizes_do_not_change_the_result(causal, softcap):
     q, k, v = _inputs(2, 200, 2, 4, 64, seed=0)
     want = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
-    before = fa.LAUNCHES
+    before = build.LAUNCHES["fa_forward"]
     for bq, bkv in [(64, 128), (256, 256), (128, 64)]:
         got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap,
                                   block_q=bq, block_kv=bkv)
         assert torch.equal(got, want)
-    assert fa.LAUNCHES == before  # CPU tensors: the plain version
+    assert build.LAUNCHES["fa_forward"] == before  # CPU tensors: the plain version
 
 
 @pytest.mark.parametrize("S,KV,G,D,blk", [

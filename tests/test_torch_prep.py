@@ -23,7 +23,7 @@ from repro_torch.data import ingest, offload_prep
 from repro_torch.data.ingest import PrepPipeline, tokens_from_batch
 from repro_torch.data.offload_prep import OffloadPrep
 from repro_torch.data.preprocess import encode_image, synthetic_image
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import preprocess as kpp
 
 try:  # the JAX reference; the machine with the card has no jax
@@ -386,12 +386,12 @@ def test_preprocess_kernel_bit_equal_on_card(h, w, out, flip, dtype):
     rng = np.random.RandomState(h + w)
     hwc = torch.from_numpy(rng.randint(0, 256, (h, w, 3)).astype(np.uint8)).to("cuda", dtype)
     slot = torch.zeros((2, out, out, 3), dtype=torch.float64, device="cuda")
-    before = kpp.LAUNCHES
+    before = build.LAUNCHES["preprocess_image"]
     got = ops.preprocess_image(hwc.permute(2, 0, 1), out_size=out, flip=flip,
                                out=slot[1].permute(2, 0, 1))
     want = ref.preprocess_image_ref(hwc.permute(2, 0, 1), out_size=out, flip=flip)
     torch.cuda.synchronize()
-    assert kpp.LAUNCHES == before + 1
+    assert build.LAUNCHES["preprocess_image"] == before + 1
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
     assert not slot[0].any()
 
@@ -402,10 +402,11 @@ def test_offload_prep_on_card_equals_host_numpy():
     _, fs, _, off = _port_plane(1)
     prep = OffloadPrep(fs, off, out_size=32, offload_ratio=0.25)
     paths = prep.materialize_corpus(8, max_side=96)
-    before = kpp.LAUNCHES
+    before = build.LAUNCHES["preprocess_batch"]
     got = prep.preprocess_minibatch(paths, epoch_seed=2)
     assert got.is_cuda and got.dtype == torch.float64
-    assert kpp.LAUNCHES - before == 1 and prep.stats["local"] == 6  # one launch a share
+    # one launch a share
+    assert build.LAUNCHES["preprocess_batch"] - before == 1 and prep.stats["local"] == 6
     want = np.stack([offload_prep.preprocess_image(fs.read(p), prep._image_seed(2, i), 32)
                      for i, p in enumerate(paths)])
     assert _bits_equal(got, want)
@@ -432,9 +433,9 @@ def test_preprocess_batch_kernel_bit_equal_on_card(out):
     packed, desc = kpp.pack_crops(crops, flips, slots, "cuda")
     got = torch.zeros((len(crops) + 4, out, out, 3), dtype=torch.float64, device="cuda")
     want = torch.zeros_like(got)
-    before = kpp.LAUNCHES
+    before = build.LAUNCHES["preprocess_batch"]
     ops.preprocess_batch(packed, desc, got)
-    assert kpp.LAUNCHES == before + 1
+    assert build.LAUNCHES["preprocess_batch"] == before + 1
     ref.preprocess_batch_ref(packed, desc, want)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))

@@ -22,7 +22,7 @@ from repro.models.model import build_model as jax_model
 from repro.serve import generate as jax_generate
 from repro_torch.core import (AcceptAll, BlockDevice, FaultyFabric, OffloadEngine,
                               OffloadFS, TaskOffloader, serve_engine)
-from repro_torch.kernels import kvmerge
+from repro_torch.kernels import build
 from repro_torch.models.bridge import from_jax_params
 from repro_torch.models.config import get_config
 from repro_torch.models.model import build_model
@@ -103,13 +103,13 @@ def test_generate_local_store_cold_warm_match_jax(bridged):
 def test_generate_offload_plane_cold_warm_match_jax(bridged):
     _, fs, off = build_plane(3)
     store = KvCacheStore(fs, off=off, chunk_blocks=1, device="cpu")
-    launches = kvmerge.LAUNCHES
+    launches = build.LAUNCHES["merge_runs"]
     cold = _gen(bridged, store)
     warm = _gen(bridged, store)
     assert np.array_equal(cold, bridged[3]) and np.array_equal(warm, bridged[3])
     assert store.stats.fetches == 2
     assert store.stats.merge_runs > store.stats.fetches  # out of order: merged
-    assert kvmerge.LAUNCHES == launches  # CPU tensors: the plain merge
+    assert build.LAUNCHES["merge_runs"] == launches  # CPU tensors: the plain merge
 
 
 def test_assemble_restores_chunk_order():
