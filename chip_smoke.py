@@ -35,7 +35,13 @@ exits non-zero without the final line:
                state, against ``ssd_chunked`` in f32 plus the D skip, twice
                for the same bits, and at granite's widths at S 2,304 and
                7,680 (one ``ssd_s<S>`` line each) timed beside
-               ``ssd_chunked`` and against its bound;
+               ``ssd_chunked`` and against its bound; the RMSNorm kernel
+               (``kernels_rmsnorm``) from the head's one row to a short
+               batch's 16,384 at d 4,096 and 5,120 against the plain
+               formula (within one bf16 ulp, 99 % bit-equal, the same bits
+               twice), one ``rmsnorm_r<rows>_d<d>`` line a shape with its
+               time over copies of x past L2, the plain formula's and its
+               bound;
   4. small   — a smoke-width model on the card against the same model on
                the CPU (plain versions) at a prompt that takes the flash path,
                in f32: the f32 flash kernel once a layer per prefill;
@@ -179,7 +185,8 @@ The train phases, and distribution's train cell, run under
 ``torch.use_deterministic_algorithms(True)``,
 with ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts.
 
-Then a ``phase_seconds`` line, the ``{"kernels": [...]}`` line, the
+Then a ``phase_seconds`` line, a ``phase_launches`` line (each kernel's
+host calls by phase), the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -279,6 +286,13 @@ SSD_CASES = [
     ("granite_s512_b2_h0", SSD_GRANITE, 2, 512, True, False),
 ]
 SSD_TIMED = (2304, 7680)
+# RMSNorm kernel (kernels_rmsnorm): (rows, d) of the benchmark's norms, the
+# head's one row to a short batch's 16,384 tokens at glm4-9b's and
+# mistral-nemo-12b's widths, bf16 x and scale; each timed over enough copies
+# of x that one pass over them exceeds the 50 MB L2 (RMS_STREAM_BYTES)
+RMS_SHAPES = ((1, 4096), (2304, 4096), (7680, 4096), (16384, 4096), (2304, 5120),
+              (7680, 5120), (16384, 5120))
+RMS_STREAM_BYTES = 256e6
 # the full-width Mamba layer's bf16 errors against f32 through the kernel,
 # as a multiple of the same errors with the kernel turned off
 MAMBA_BF16_ERR_RATIO = 1.05
@@ -301,7 +315,7 @@ def check(cond: bool, msg: str) -> None:
 # ``build.LAUNCHES`` counts by name; a phase reports their sum
 KERNEL_ENTRIES = {"flash_attention": ("fa_forward",), "merge": ("merge_sorted", "merge_runs"),
                   "preprocess": ("preprocess_image", "preprocess_batch"),
-                  "ssd": ("ssd_forward",)}
+                  "ssd": ("ssd_forward",), "rms_norm": ("rms_norm",)}
 
 
 def launched(kernel: str) -> int:
@@ -407,7 +421,7 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(["flash_attention", "merge", "preprocess", "ssd"])
+    build.build(["flash_attention", "merge", "preprocess", "ssd", "rmsnorm"])
     emit("build", seconds=time.perf_counter() - t0, kernels=build.BUILD_LOG)
 
 
@@ -972,6 +986,73 @@ def phase_kernels_ssd():
             **{k: last[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "share_of_bound")},
             "timed_shapes": timed}
+
+
+def rms_norm_work(rows: int, d: int, scale_bytes: int = 2):
+    """(FLOP, bytes) of one RMSNorm call as ``bench/metrics/rms_norm_roofline.*``
+    count them: x read and y written in bf16, the scale read once; four
+    operations an element."""
+    return 4 * rows * d, rows * d * (2 + 2) + scale_bytes * d
+
+
+def phase_kernels_rmsnorm():
+    """The RMSNorm kernel (``ops.rms_norm``) against the plain formula it
+    replaces (``ref.rms_norm_ref``) on the same bf16 input, at each of
+    RMS_SHAPES: every output within one bf16 ulp and at least 99 % bit-equal
+    (``ref.rms_norm_check``), the same bits on a second call, one launch a
+    call; then its device time over copies of x that stream from device
+    memory, the plain formula's, the host's time a call, and its bound (bytes
+    at HBM's bandwidth). One ``rmsnorm_r<rows>_d<d>`` line a shape, then
+    ``kernels_rmsnorm``; returns the latter's record."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    shapes, calls = {}, 0
+    for rows, d in RMS_SHAPES:
+        g = torch.Generator("cuda").manual_seed(rows + d)
+        copies = max(1, min(16, math.ceil(RMS_STREAM_BYTES / (4 * rows * d))))
+        xs = [(3 * torch.randn((rows, d), generator=g, device="cuda")).bfloat16()
+              for _ in range(copies)]
+        scale = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).bfloat16()
+        before = launched("rms_norm")
+        y, y2 = ops.rms_norm(xs[0], scale), ops.rms_norm(xs[0], scale)
+        torch.cuda.synchronize()
+        n = launched("rms_norm") - before
+        calls += n
+        errs, ok = ref.rms_norm_check(y, xs[0], scale)
+        same = bool(torch.equal(y, y2))
+        check(ok and same and n == 2, f"rms_norm {rows}x{d}: {errs}, deterministic {same}")
+        turn = [0]
+
+        def next_x():
+            turn[0] = (turn[0] + 1) % copies
+            return xs[turn[0]]
+
+        ms = time_ms(lambda: ops.rms_norm(next_x(), scale), 200)
+        plain_ms = time_ms(lambda: ref.rms_norm_ref(next_x(), scale), 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):  # the rule, the checks, the allocation and the launch
+            ops.rms_norm_takes(xs[0], scale)
+            ops.rms_norm(xs[0], scale)
+        host_us = (time.perf_counter() - t0) * 1e6 / 200
+        torch.cuda.synchronize()
+        flops, nbytes = rms_norm_work(rows, d)
+        b_ms, by = bound(flops, nbytes, PEAK_BF16)
+        rec = {"rows": rows, "d": d, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": by, "share_of_bound": b_ms / ms, "speedup": plain_ms / ms,
+               "host_us_per_call": host_us, "copies": copies, "bytes": nbytes, **errs}
+        emit(f"rmsnorm_r{rows}_d{d}", **rec)
+        shapes[f"r{rows}_d{d}"] = rec
+        del xs, y, y2
+        torch.cuda.empty_cache()
+    rec = {"calls": calls, "max_ulps": max(c["max_ulps"] for c in shapes.values()),
+           "min_equal_share": min(c["equal_share"] for c in shapes.values()),
+           "tol": {"max_ulps": ref.RMS_NORM_MAX_ULPS, "min_equal": ref.RMS_NORM_MIN_EQUAL},
+           "shapes": shapes}
+    emit("kernels_rmsnorm", **rec)
+    return rec
 
 
 # ------------------------------------------------------------ phases 4-5
@@ -1546,7 +1627,7 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
     max_len = S + STEPS
     want_calls = prefill_flash_calls(cfg, S, BATCH)
     flash_per_prefill = sum(want_calls.values())
-    fa0 = launched("flash_attention")
+    fa0, rn0 = launched("flash_attention"), launched("rms_norm")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1555,6 +1636,7 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
         torch.cuda.synchronize()
     first_prefill_ms = (time.perf_counter() - t0) * 1e3
     warmup_flash = launched("flash_attention") - fa0
+    rms_norm_per_prefill = launched("rms_norm") - rn0
     check(warmup_flash == flash_per_prefill,
           f"{cfg.name} first prefill: flash launched {warmup_flash} times, "
           f"want {flash_per_prefill}")
@@ -1646,6 +1728,7 @@ def arch_run(cfg, model, params, prompt, store=None, *, extra=None):
                   f"{r['merge_runs']} runs")
     return {"runs": runs, "launches": launches, "tokens": want.tolist(),
             "first_prefill_ms": first_prefill_ms, "flash_per_prefill": flash_per_prefill,
+            "rms_norm_per_prefill": rms_norm_per_prefill,
             "finite_logit_calls": len(finite), "seq": S,
             "flash_calls": sorted([list(sh), cap, causal, n]
                                   for (sh, cap, causal), n in flash_calls.items()),
@@ -1682,6 +1765,11 @@ def phase_archs():
         init_s = time.perf_counter() - t0
         store = serving_store() if name == "glm4-9b" else None
         rec = arch_run(cfg, model, params, prompt, store)
+        # a bf16 prefill runs every RMSNorm in the kernel: ln1 and ln2 of each
+        # layer and the head's
+        check(rec["rms_norm_per_prefill"] == 2 * cfg.num_layers + 1,
+              f"{name}: {rec['rms_norm_per_prefill']} RMSNorm launches a prefill, want "
+              f"{2 * cfg.num_layers + 1}")
         for k in launches:
             launches[k] += rec["launches"][k]
         out[name] = {
@@ -3070,18 +3158,20 @@ def main() -> int:
     import repro_torch.kernels.build  # noqa: F401  (the port must be here)
 
     info = phase_device()
-    seconds = {}
+    seconds, by_phase = {}, {}
 
     def timed_phase(name, fn, *a):
-        t0 = time.perf_counter()
+        t0, n0 = time.perf_counter(), {k: launched(k) for k in KERNEL_ENTRIES}
         out = fn(*a)
         seconds[name] = time.perf_counter() - t0
+        by_phase[name] = {k: launched(k) - n for k, n in n0.items() if launched(k) > n}
         return out
 
     timed_phase("build", phase_build)
     fa_rec = timed_phase("kernels", phase_kernels)
     pp_rec = timed_phase("kernels_preprocess", phase_kernels_preprocess)
     ssd_rec = timed_phase("kernels_ssd", phase_kernels_ssd)
+    rms_rec = timed_phase("kernels_rmsnorm", phase_kernels_rmsnorm)
     small_launches = timed_phase("small", phase_small)
     launches, nchunks, nruns, main_tokens, served = timed_phase("main", phase_main)
     paper_launches = timed_phase("paper_figures", phase_paper_figures, served)
@@ -3100,6 +3190,7 @@ def main() -> int:
     train_flash = timed_phase("train", phase_train)
     dist_flash = timed_phase("distribution", phase_distribution)
     emit("phase_seconds", **seconds)
+    emit("phase_launches", **by_phase)  # host calls of each kernel's entries, by phase
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3157,6 +3248,13 @@ def main() -> int:
          "ms": ssd_rec["ms"], "plain_ms": ssd_rec["plain_ms"], "bound_ms": ssd_rec["bound_ms"],
          "bound_by": ssd_rec["bound_by"], "share_of_bound": ssd_rec["share_of_bound"],
          "library_ms": None, "timed_shapes": ssd_rec["timed_shapes"]},
+        {"name": "rms_norm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+         "replaces": "src/repro_torch/models/layers.py apply_norm's RMSNorm (no TPU kernel)",
+         "launches": launched("rms_norm"),
+         "launches_by_path": {k: n["rms_norm"] for k, n in by_phase.items() if "rms_norm" in n},
+         "max_ulps": rms_rec["max_ulps"], "min_equal_share": rms_rec["min_equal_share"],
+         "library_ms": None, "shapes": rms_rec["shapes"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["nvidia_smi"], flush=True)

@@ -40,7 +40,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Counter = Counter()
 # the kernels a prefill may reach, built together at the first of them
 # (one nvcc each, in parallel), so that only a first run waits, and once
-PREFILL = ("flash_attention", "ssd")
+PREFILL = ("flash_attention", "ssd", "rmsnorm")
 _lock = threading.Lock()
 
 

@@ -5,11 +5,14 @@ tensors, its Hopper kernel on CUDA tensors, or a raise where the kernel
 does not take the call. Whether a call comes here is the model's choice,
 in one place per kernel: ``models.layers.attention_path`` picks the
 attention path of each call (this op, the chunked twin or einsum), and
-``models.ssm.apply_mamba``, through ``ssd_takes``, picks the SSD scan's.
+``models.ssm.apply_mamba``, through ``ssd_takes``, picks the SSD scan's,
+and ``models.layers.apply_norm``, through ``rms_norm_takes``, the norm's.
 
 ``ssd_scan`` replaces no TPU kernel: it is the Mamba-2 mixer's chunked
 scan with its D skip (``src/repro/models/ssm.py`` ``ssd_chunked``, plain
-jnp there), for the calls ``ssd_takes`` accepts.
+jnp there), for the calls ``ssd_takes`` accepts. ``rms_norm`` replaces
+none either: it is ``apply_norm``'s RMSNorm (``ref.rms_norm_ref``, nine
+PyTorch passes) in one, for the calls ``rms_norm_takes`` accepts.
 
 ``merge_runs`` and ``preprocess_batch`` compute nothing the JAX package
 does not: ``merge_runs`` is the fold of ``merge_sorted`` over a fetch's
@@ -23,6 +26,7 @@ from __future__ import annotations
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kvmerge as _kv
 from repro_torch.kernels import preprocess as _pp
+from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd as _ssd
 
 
@@ -60,6 +64,21 @@ def ssd_takes(x, dt, Bm, Cm, chunk) -> bool:
     that autograd does not record through, x in bf16, a head dim of 64, a
     state of 64 or 128, chunks of 256 and S a whole number of them."""
     return _ssd.takes(*_ssd.properties(x, Bm, chunk, dt, Cm))
+
+
+def rms_norm(x, scale, *, eps=1e-5):
+    """RMSNorm over the last dim, forward only: x (..., d) bf16, scale (d,)
+    bf16 or f32 → ``ref.rms_norm_ref``'s value in bf16 (the same f32
+    arithmetic, rounded once; only the order of the sum of squares differs)."""
+    return _rms.rms_norm(x, scale, eps)
+
+
+def rms_norm_takes(x, scale, bias=None) -> bool:
+    """Whether ``rms_norm`` runs its kernel on this norm: CUDA tensors that
+    autograd does not record through, x in bf16, the scale in bf16 or f32, no
+    bias, d a multiple of 8 up to the kernel's widest, and rows and scale
+    whole on every device where they are DTensors."""
+    return _rms.takes(*_rms.properties(x, scale, bias))
 
 
 def merge_sorted(a_keys, a_vals, b_keys, b_vals):

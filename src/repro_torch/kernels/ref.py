@@ -244,3 +244,42 @@ def ssd_scan_check(y, h_last, x, dt, A, Bm, Cm, D, *, chunk, h0=None):
             "state_rel_err": ((h_last.float() - want_h).norm() / want_h.norm()).item()}
     ok = errs["y_ulp_ratio"] <= 1.0 and errs["state_rel_err"] <= SSD_STATE_REL_TOL
     return errs, ok
+
+
+def rms_norm_ref(x, scale, eps=1e-5):
+    """RMSNorm over the last dim in f32, keeping x's dtype: x (..., d), scale
+    (d,). The one plain formula: ``models.layers.apply_norm`` runs it
+    wherever the kernel does not serve the call."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * scale.float()
+    return y.to(x.dtype)
+
+
+# What the RMSNorm kernel is held to, against ``rms_norm_ref`` on the card on
+# the same input: every output within one bf16 ulp (its sum of squares runs
+# in another order, which may move the f32 value across a rounding
+# boundary), and nearly all of them equal.
+RMS_NORM_MAX_ULPS = 1
+RMS_NORM_MIN_EQUAL = 0.99
+
+
+def _bf16_order(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in their order, neighbours 1 apart (±0 both 0)."""
+    i = t.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def rms_norm_check(y, x, scale, eps=1e-5):
+    """Errors of a kernel's bf16 ``y`` against ``rms_norm_ref`` on the same
+    x and scale: ``max_ulps`` (bf16 steps apart) and ``equal_share`` (the
+    share of elements with the same bits). Returns (errors, within
+    tolerance)."""
+    want = rms_norm_ref(x, scale, eps)
+    ulps = (_bf16_order(y) - _bf16_order(want)).abs()
+    errs = {"max_ulps": int(ulps.max().item()),
+            "equal_share": (ulps == 0).float().mean().item(),
+            "finite": bool(torch.isfinite(y).all().item())}
+    ok = (errs["max_ulps"] <= RMS_NORM_MAX_ULPS and errs["equal_share"] >= RMS_NORM_MIN_EQUAL
+          and errs["finite"])
+    return errs, ok

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.schema import ParamSpec
 from repro_torch.sharding import current_rules, lac, lac_split, per_shard, split_first, use_rules
 from repro_torch.spans import span
@@ -66,16 +66,19 @@ def norm_spec(cfg) -> dict:
 
 def apply_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm when ``p`` has a bias, else RMSNorm; in f32, keeping x's
-    dtype."""
+    dtype. A norm that ``ops.rms_norm_takes`` (a forward-only bf16 RMSNorm
+    on the card) runs the Hopper kernel, one pass with the same arithmetic;
+    every other RMSNorm the plain formula ``ref.rms_norm_ref``."""
+    scale, bias = p["scale"], p.get("bias")
+    if ops.rms_norm_takes(x, scale, bias):
+        return ops.rms_norm(x, scale, eps=eps)
+    if bias is None:
+        return ref.rms_norm_ref(x, scale, eps)
     xf = x.float()
-    if "bias" in p:
-        mu = xf.mean(-1, keepdim=True)
-        var = (xf - mu).square().mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * p["scale"].float() + p["bias"].float()
-    else:
-        ms = xf.square().mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
     return y.to(x.dtype)
 
 

@@ -874,3 +874,55 @@ def test_ssd_kernel_refuses_what_it_does_not_take_on_card():
         ops.ssd_scan(x[:, :300], dt[:, :300], A, Bm[:, :300], Cm[:, :300], D, chunk=256)
     with pytest.raises(ValueError, match="contiguous float32"):
         ops.ssd_scan(x, dt.double(), A, Bm, Cm, D, chunk=256)
+
+
+# ------------------------------------------------------------- RMSNorm
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,layout,scale_dtype", [
+    (1, 4096, "rows", torch.bfloat16),        # the head's last position, a decode step
+    (2304, 4096, "rows", torch.bfloat16),     # the shortest long prompt
+    (7680, 4096, "rows", torch.bfloat16),     # glm4-9b and granite at the longest
+    (7680, 5120, "rows", torch.bfloat16),     # mistral-nemo-12b at the longest
+    (16384, 5120, "rows", torch.bfloat16),    # a short batch's 16,384 tokens
+    (51, 4096, "rows", torch.bfloat16),       # a ragged last block
+    (16, 5120, "head_view", torch.bfloat16),  # x[:, -1:] of a batch of 16: strided rows
+    (300, 4096, "rows", torch.float32),       # f32 params, bf16 compute (chip_smoke's archs)
+    (33, 2056, "rows", torch.bfloat16),       # d 8 · 257: a lane's last vector past the row
+    (5, 24, "rows", torch.bfloat16),          # narrower than a warp's loads
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_rms_norm_kernel_against_the_plain_formula_on_card(rows, d, layout, scale_dtype):
+    """``ops.rms_norm`` against ``ref.rms_norm_ref`` on the card, on the
+    same bf16 input (values N(0, 9), a scale 1 + N(0, 0.01)): every output
+    within one bf16 ulp, at least 99 % bit-equal (``ref.rms_norm_check``),
+    and the same bits on a second call; one launch a call."""
+    _need_cuda()
+    g = torch.Generator("cuda").manual_seed(rows + d)
+    if layout == "head_view":
+        x = (3 * torch.randn((rows, 7, d), generator=g, device="cuda")).bfloat16()[:, -1:]
+    else:
+        x = (3 * torch.randn((rows, d), generator=g, device="cuda")).bfloat16()
+    scale = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(scale_dtype)
+    before = build.LAUNCHES["rms_norm"]
+    y = ops.rms_norm(x, scale)
+    y2 = ops.rms_norm(x, scale)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rms_norm"] == before + 2
+    assert y.shape == x.shape and y.dtype == torch.bfloat16 and y.is_contiguous()
+    errs, ok = ref.rms_norm_check(y, x, scale)
+    assert ok, errs
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.gpu
+def test_rms_norm_kernel_refuses_what_it_does_not_take_on_card():
+    _need_cuda()
+    x = torch.randn((4, 64), device="cuda").bfloat16()
+    s = torch.ones(64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.rms_norm(x.float(), s)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.rms_norm(x[:, :60], s[:60])
+    with pytest.raises(ValueError, match="does not take"):
+        ops.rms_norm(x.requires_grad_(), s)
+    with pytest.raises(ValueError, match="scale"):
+        ops.rms_norm(x.detach(), s[:32])
